@@ -9,7 +9,7 @@ nothing of JAX.  Phases, each fatal on failure:
 
 1. build: compiles every CUDA kernel of the port from ``csrc/`` (one nvcc
    per source, all started together) into ``build/kernels/``;
-2. kernel: the eval-tail kernel against its plain PyTorch version on the
+2. kernel: the eval-tail kernel K3 against its plain PyTorch version on the
    card at the benchmark's shape, x (16, 19, 256, 512) float32 with TF32 off:
    (a) inputs whose logits are exact in float32 (every product and sum is a
    multiple of 2^-12), so the class map and every count must be equal;
@@ -23,7 +23,34 @@ nothing of JAX.  Phases, each fatal on failure:
    0 just before and read just after (it must equal the batch count); checks
    one batch's eval step against the plain full-logits composition; times a
    warm eval step at batch 16 and its parts with CUDA events; runs
-   ``test --image-file`` on one frame.
+   ``test --image-file`` on one frame;
+4. K1: the train tail's forward and backward kernels against the plain
+   autograd composition (ConvT + the port's CE sum) at x (8, 19, 256, 512),
+   float32 and bfloat16 x, with ignored and out-of-range labels.  Gradients
+   are those of the CE sum (cotangent 1, so dX is O(1)): the value within
+   rel 1e-5 and an equal count; per element |d| <= rtol * (|plain| +
+   max|plain|) with rtol 1e-5 for dX and 1e-4 for dW and db (sums over 4.2 M
+   pixels in another order); a bfloat16 dX within one bfloat16 ulp of the
+   plain value plus 1e-5 * max|plain|.  Two backward launches must give
+   bit-identical gradients.  Forward, backward and the plain forward +
+   backward are timed with CUDA events;
+5. K2: the photometric kernel against its plain version at (8, 512, 1024, 3)
+   uint8, per-sample taps and matrices, half of them identity taps, whose
+   float32 output must be bit-exact; float32 within atol 1e-6, bfloat16
+   within one ulp; timed;
+6. train: writes a synthetic train split of 24 frames at 1024x2048 beside
+   the val split and runs ``train --stage 1 --epochs 1 --batch-size 8
+   --val-interval 1`` at full depth through the CLI's ``main``, with every
+   kernel's launch count set to 0 just before and read just after: K1
+   forward, K1 backward and K2 once per step (3), K3 once per val batch
+   (5); ``final.weights`` must load with strict=True and every loss be
+   finite; then ``benchmark`` of the trained weights;
+7. train step: one step with K1 against the same step with the plain tail
+   on copies of one model (dropout off, BatchNorm frozen): losses within
+   rel 1e-5, the updates SGD applied (lr * its momentum buffer after one
+   step) within 1e-4 of the largest update; then a
+   warm float32 step at batch 8 and its parts timed with CUDA events, and
+   one bfloat16 (``--mixed-precision O1``) step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -146,6 +173,185 @@ def kernel_phase():
               tuple(x.shape), ms, plain_ms, record['bound_ms'], nbytes, t_bytes, ops, t_ops),
           flush=True)
     return record
+
+
+def bound(nbytes, ops):
+    """(bound ms, 'bytes' or 'operations') on this card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def record(name, source, replaces, max_abs_err, ms, plain_ms, nbytes, ops):
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': None, 'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp at each |t| (8 significant bits)."""
+    import torch
+    a = t.abs().float().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def grad_check(name, got, ref, rtol, bf16=False):
+    """|got - ref| <= rtol * (|ref| + max|ref|) elementwise (+ one bf16 ulp
+    of ref when bf16); returns the max abs and normwise errors."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    allowed = rtol * (ref.abs() + ref.abs().max())
+    if bf16:
+        allowed = allowed + bf16_ulp(ref)
+    out = {'max_abs': float(diff.max()), 'normwise': float(diff.max() / ref.abs().max().clamp(min=1e-30)),
+           'over': int((diff > allowed).sum()) + int(diff.isnan().sum())}
+    if out['over']:
+        fail("K1 {} differs from the plain version: {}".format(name, out))
+    return out
+
+
+def k1_case(gen, b, h, w, dtype):
+    x, weight, bias, labels = tail_case(gen, b, h, w, exact=False)
+    return x.to(dtype).contiguous(), weight, bias, labels
+
+
+def k1_compare(x, weight, bias, labels):
+    """K1 forward and backward against the plain autograd composition on the
+    same card inputs (gradients of the CE sum); returns the errors."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
+        fused_tail_forward, fused_tail_backward, fused_convt2_ce_sum_plain,
+        fused_convt2_ce_mean, fused_convt2_ce_mean_plain)
+    bf16 = x.dtype == torch.bfloat16
+    ce_k, cnt_k = fused_tail_forward(x, weight, bias, labels)
+    one = torch.ones((), device='cuda')
+    dx_k, dw_k, db_k = fused_tail_backward(x, weight, bias, labels, one)
+    dx_k2, dw_k2, db_k2 = fused_tail_backward(x, weight, bias, labels, one)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in ((dx_k, dx_k2), (dw_k, dw_k2), (db_k, db_k2)))
+    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, weight, bias))
+    ce_p, cnt_p = fused_convt2_ce_sum_plain(xr, wr, br, labels)
+    ce_p.backward()
+    ce_p = ce_p.detach()
+    rel = abs(float(ce_k) - float(ce_p)) / max(abs(float(ce_p)), 1e-30)
+    out = {'dtype': str(x.dtype), 'shape': tuple(x.shape), 'ce_sum_kernel': float(ce_k),
+           'ce_sum_plain': float(ce_p), 'ce_rel_err': rel, 'count_kernel': int(cnt_k),
+           'count_plain': int(cnt_p), 'bit_identical_rerun': identical}
+    if not rel <= 1e-5 or int(cnt_k) != int(cnt_p):
+        fail("K1 forward differs from the plain version: {}".format(out))
+    if not identical:
+        fail("K1 backward is not bit-identical across two launches: {}".format(out))
+    out['dX'] = grad_check('dX', dx_k, xr.grad, 1e-5, bf16=bf16)
+    out['dW'] = grad_check('dW', dw_k, wr.grad, 1e-4)
+    out['db'] = grad_check('db', db_k, br.grad, 1e-4)
+    # The path's own entry: the mean loss through the autograd Function.
+    xm = x.detach().clone().requires_grad_()
+    loss_k = fused_convt2_ce_mean(xm, weight, bias, labels)
+    loss_p = fused_convt2_ce_mean_plain(x, weight, bias, labels)
+    loss_k.backward()
+    out['mean_kernel'], out['mean_plain'] = float(loss_k.detach()), float(loss_p)
+    if not abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p)) or xm.grad is None \
+            or xm.grad.dtype != x.dtype:
+        fail("K1 mean loss differs from the plain version: {}".format(out))
+    print("K1 vs plain: " + json.dumps(out), flush=True)
+    return out
+
+
+def k1_phase():
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
+        fused_tail_forward, fused_tail_backward, fused_convt2_ce_sum_plain)
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    for dtype in (torch.float32, torch.bfloat16):
+        k1_compare(*k1_case(gen, 1, 8, 40, dtype))        # ragged last tile
+    x, weight, bias, labels = k1_case(gen, 8, 256, 512, torch.float32)
+    f32 = k1_compare(x, weight, bias, labels)
+    k1_compare(*k1_case(gen, 8, 256, 512, torch.bfloat16))
+
+    one = torch.ones((), device='cuda')
+    fwd_ms = cuda_ms(lambda: fused_tail_forward(x, weight, bias, labels), iters=20)
+    bwd_ms = cuda_ms(lambda: fused_tail_backward(x, weight, bias, labels, one), iters=20)
+
+    def plain_fwd():
+        with torch.no_grad():
+            fused_convt2_ce_sum_plain(x, weight, bias, labels)
+
+    def plain_fwd_bwd():
+        xr, wr, br = (t.detach().requires_grad_() for t in (x, weight, bias))
+        fused_convt2_ce_sum_plain(xr, wr, br, labels)[0].backward()
+
+    plain_fwd_ms = cuda_ms(plain_fwd, iters=5, warmup=1)
+    plain_fwd_bwd_ms = cuda_ms(plain_fwd_bwd, iters=5, warmup=1)
+    c, out_pixels, xb = NUM_CLASSES, labels.numel(), x.numel() * x.element_size()
+    params = (weight.numel() + bias.numel()) * 4
+    src = 'dualsuperreslearningforsemseg_tpu_torch/csrc/fused_tail.cu'
+    fwd = record('fused_tail_forward', src,
+                 'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:218',
+                 abs(f32['ce_sum_kernel'] - f32['ce_sum_plain']), fwd_ms, plain_fwd_ms,
+                 xb + labels.numel() + params + 16, out_pixels * (2 * c * c + 6 * c))
+    bwd = record('fused_tail_backward', src,
+                 'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:251',
+                 f32['dX']['max_abs'], bwd_ms, plain_fwd_bwd_ms,
+                 2 * xb + labels.numel() + 2 * params + 4, out_pixels * (6 * c * c + 9 * c))
+    for r, what in ((fwd, 'plain forward'), (bwd, 'plain forward+backward')):
+        print("{} at x {} float32: kernel {:.4f} ms, {} {:.3f} ms, bound {:.4f} ms ({})".format(
+            r['name'], tuple(x.shape), r['ms'], what, r['plain_ms'], r['bound_ms'], r['bound_by']),
+            flush=True)
+    return [fwd, bwd]
+
+
+def k2_params(gen, b):
+    """Per-sample photometric parameters as training draws them, then every
+    other sample forced to identity taps and one to grayscale."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.data import AugmentConfig, photometric_params
+    ds = settings.DATASETS['cityscapes']['settings']
+    cfg = AugmentConfig(mean=ds.MEAN, std=ds.STD, blur_p=1.0, grayscale_p=0.0)
+    taps, cmat, coff = photometric_params(gen, b, cfg, ds.STD)
+    taps[0::2] = torch.tensor([0.0, 1.0, 0.0], device=taps.device)
+    gray = photometric_params(gen, 1, AugmentConfig(mean=ds.MEAN, std=ds.STD, grayscale_p=1.0), ds.STD)[1]
+    cmat[1] = gray[0]
+    return taps.contiguous(), cmat.contiguous(), coff.contiguous()
+
+
+def k2_phase():
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.augment_post import photometric, photometric_plain
+    gen = torch.Generator(device='cuda').manual_seed(99)
+    results = {}
+    for b, h, w in ((3, 7, 45), (8, 512, 1024)):      # odd sizes, then the recipe's
+        img = torch.randint(0, 256, (b, h, w, 3), generator=gen, device='cuda', dtype=torch.uint8)
+        taps, cmat, coff = k2_params(gen, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = photometric(img, taps, cmat, coff, dtype)
+            ref = photometric_plain(img, taps, cmat, coff, dtype)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            out = {'shape': (b, h, w), 'dtype': str(dtype), 'max_abs_err': float(diff.max()),
+                   'identity_taps_bit_exact': bool(torch.equal(got[0::2], ref[0::2])),
+                   'bit_exact': bool(torch.equal(got, ref))}
+            if dtype == torch.float32:
+                ok = out['identity_taps_bit_exact'] and out['max_abs_err'] <= 1e-6
+            else:
+                ok = bool((diff <= bf16_ulp(ref)).all())
+            print("K2 vs plain: " + json.dumps(out), flush=True)
+            if not ok:
+                fail("K2 differs from the plain version: {}".format(out))
+            results[(b, dtype)] = (img, taps, cmat, coff, out)
+    img, taps, cmat, coff, out = results[(8, torch.float32)]
+    ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.float32), iters=50)
+    plain_ms = cuda_ms(lambda: photometric_plain(img, taps, cmat, coff, torch.float32), iters=5, warmup=1)
+    bf16_ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.bfloat16), iters=50)
+    pixels = img.numel() // 3
+    rec = record('augment_post', 'dualsuperreslearningforsemseg_tpu_torch/csrc/augment_post.cu',
+                 'dualsuperreslearningforsemseg_tpu/ops/pallas/augment_post.py:136',
+                 out['max_abs_err'], ms, plain_ms, img.numel() + pixels * 3 * 4 + 15 * 4 * img.shape[0],
+                 pixels * 78)
+    print("augment_post at (8, 512, 1024, 3) uint8 -> float32: kernel {:.4f} ms (bfloat16 out "
+          "{:.4f} ms), plain {:.3f} ms, bound {:.4f} ms ({})".format(
+              ms, bf16_ms, plain_ms, rec['bound_ms'], rec['bound_by']), flush=True)
+    return rec
 
 
 def check_eval_step(model, loader_batch, transform, eval_step, tie_eps=1e-4):
@@ -284,6 +490,207 @@ def main_path_phase(device_name):
     return launches
 
 
+def reset_counts():
+    from dualsuperreslearningforsemseg_tpu_torch.ops.augment_post import photometric
+    from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
+        fused_tail_forward, fused_tail_backward)
+    fns = {'fused_tail_forward': fused_tail_forward, 'fused_tail_backward': fused_tail_backward,
+           'augment_post': photometric, 'eval_tail': eval_tail}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def train_phase(device_name):
+    """``train`` of 3 steps at full depth through the CLI; returns the
+    launch counts of that run and the final weights' path."""
+    import math
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main as cli_main
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.data import make_synthetic_cityscapes_tree
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, load_state_dict
+    t0 = time.time()
+    make_synthetic_cityscapes_tree(os.path.join('datasets', 'Cityscapes', 'data'), split='train',
+                                   num_images=24, size_hw=(1024, 2048), seed=8, noise=1)
+    print("set-up: 24 synthetic 1024x2048 train frames in {:.1f} s".format(time.time() - t0), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_counts()
+    res = cli_main(['train', '--stage', '1', '--epochs', '1', '--batch-size', '8', '--dataset',
+                    'cityscapes', '--val-interval', '1', '--experiment-id', 'smoke'])
+    counts = {name: fn.launches for name, fn in fns.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, val_batches = 24 // 8, -(-36 // 8)
+    print("train on {}: {} steps in {:.2f} s end to end (incl. model init, worker start-up, decode), "
+          "train CE {:.6f}, val CE {:.6f}, mIoU {:.4f} %, accuracy {:.4f} %, peak device memory "
+          "{:.2f} GiB, launches {}".format(
+              device_name, res['steps'], res['seconds'], res['train_losses'][0]['CE'],
+              res['val']['CE'], res['val']['mIoU'], res['val']['accuracy'], peak_gib,
+              json.dumps(counts)), flush=True)
+    want = {'fused_tail_forward': steps, 'fused_tail_backward': steps, 'augment_post': steps,
+            'eval_tail': val_batches}
+    if counts != want or res['steps'] != steps:
+        fail("train launched {} for {} steps and {} val batches (want {})".format(
+            counts, res['steps'], val_batches, want))
+    losses = [v for d in res['train_losses'] for v in d.values()] + [res['val']['CE']]
+    if not all(math.isfinite(v) for v in losses):
+        fail("train losses are not finite: {}".format(res))
+    state = load_checkpoint_or_weights(res['final_weights'])['model_state_dict']
+    load_state_dict(DSRL(num_classes=NUM_CLASSES), state, strict=True)
+    print("final.weights {} loads with strict=True ({} tensors)".format(res['final_weights'], len(state)),
+          flush=True)
+    bench = cli_main(['benchmark', '--weights', res['final_weights'], '--dataset', 'cityscapes',
+                      'val', '--batch-size', '16'])
+    print("benchmark of the trained weights: CE {:.6f}, mIoU {:.4f} %, accuracy {:.4f} %".format(
+        bench['CE'], bench['mIoU'], bench['accuracy']), flush=True)
+    if not np.isfinite(bench['CE']):
+        fail("benchmark of the trained weights: {}".format(bench))
+    return counts, res['final_weights']
+
+
+def no_dropout(model):
+    from torch import nn
+    for module in list(model.modules()):
+        for name, child in module.named_children():
+            if isinstance(child, nn.Dropout):
+                setattr(module, name, nn.Identity())
+    return model
+
+
+def train_step_phase(device_name, weights):
+    """One step with K1 against the same step with the plain tail, then the
+    warm step's breakdown at batch 8 (float32) and one bfloat16 step."""
+    import copy
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import load_model
+    from dualsuperreslearningforsemseg_tpu_torch.data import (
+        AugmentConfig, CityscapesDataset, make_warp_transform, make_device_post_fn)
+    from dualsuperreslearningforsemseg_tpu_torch.models import freeze_batch_norms
+    from dualsuperreslearningforsemseg_tpu_torch.ops import fused_tail
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step, make_sgd, steps
+    ds = settings.DATASETS['cityscapes']['settings']
+    cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
+                        mean=ds.MEAN, std=ds.STD)
+    train_set = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='train')
+    imgs, segs = (torch.from_numpy(np.stack(a)).cuda()
+                  for a in zip(*(train_set[i] for i in range(8))))
+    warp = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED)
+    lr, ignore = 0.006, ds.IGNORE_CLASS_LABEL
+
+    # (a) K1 against the plain tail, one step each from the same state.
+    base = no_dropout(load_model(weights, NUM_CLASSES, torch.device('cuda')))
+    runs = {}
+    for name, tail_fn in (('kernel', fused_tail.fused_convt2_ce_mean),
+                          ('plain', fused_tail.fused_convt2_ce_mean_plain)):
+        model = copy.deepcopy(base)
+        optimizer = make_sgd(model, lr, 0.9, 0.0005)
+        step = make_train_step(model, optimizer, 1, ignore, True, post_fn=make_device_post_fn(cfg))
+        steps.fused_convt2_ce_mean = tail_fn
+        try:
+            imgs_w, segs_w = warp(1, 0, imgs, segs)
+            losses = step(imgs_w, segs_w, lr, torch.Generator(device='cuda').manual_seed(5))
+            torch.cuda.synchronize()
+        finally:
+            steps.fused_convt2_ce_mean = fused_tail.fused_convt2_ce_mean
+        # The update SGD applied, lr * (grad + wd * p): read from its momentum
+        # buffer, since p_after - p_before is quantised to an ulp of p.
+        runs[name] = (float(losses['CE']),
+                      {k: lr * optimizer.state[v]['momentum_buffer']
+                       for k, v in model.named_parameters()})
+    (ce_k, upd_k), (ce_p, upd_p) = runs['kernel'], runs['plain']
+    largest = max(float(u.abs().max()) for u in upd_p.values())
+    worst = max(float((upd_k[k] - upd_p[k]).abs().max()) for k in upd_p)
+    out = {'ce_kernel': ce_k, 'ce_plain': ce_p, 'ce_rel_err': abs(ce_k - ce_p) / abs(ce_p),
+           'largest_update': largest, 'max_update_diff': worst,
+           'update_diff_over_largest': worst / largest, 'tensors': len(upd_p)}
+    print("train step with K1 vs the plain tail (dropout off, BN frozen): " + json.dumps(out), flush=True)
+    if not (out['ce_rel_err'] <= 1e-5 and worst <= 1e-4 * largest):
+        fail("train step with K1 disagrees with the plain tail: {}".format(out))
+    del runs, upd_k, upd_p, base
+
+    # (b) The warm float32 step at batch 8 and its parts.
+    model = load_model(weights, NUM_CLASSES, torch.device('cuda'))
+    optimizer = make_sgd(model, lr, 0.9, 0.0005)
+    post = make_device_post_fn(cfg)
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    step = make_train_step(model, optimizer, 1, ignore, False, post_fn=post)
+    tail = model.SSSR_decoder.upsample16_pred[6]
+    parts = ('warp', 'k2_resize', 'forward', 'k1_forward', 'backward', 'optimizer')
+    totals = dict.fromkeys(parts, 0.0)
+    n_timed, n_warm = 5, 2
+    for i in range(n_warm + n_timed):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+        ev[0].record()
+        imgs_w, segs_w = warp(1, i, imgs, segs)
+        ev[1].record()
+        (img_lo, _), (seg_hi, _) = post(imgs_w, segs_w, gen)
+        ev[2].record()
+        model.train()
+        for group in optimizer.param_groups:
+            group['lr'] = lr
+        y = model(img_lo.permute(0, 3, 1, 2).contiguous(), pre_tail=True)
+        ev[3].record()
+        ce = fused_tail.fused_convt2_ce_mean(y, tail.weight, tail.bias, seg_hi.contiguous(), ignore)
+        ev[4].record()
+        optimizer.zero_grad(set_to_none=True)
+        ce.backward()
+        ev[5].record()
+        optimizer.step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            for k, name in enumerate(parts):
+                totals[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
+    times = {name + '_ms': totals[name] for name in parts}
+    times['k1_backward_ms (inside backward)'] = cuda_ms(
+        lambda: fused_tail.fused_tail_backward(y.detach(), tail.weight.detach(), tail.bias.detach(),
+                                               seg_hi.contiguous(), torch.ones((), device='cuda')),
+        iters=10)
+
+    def whole_step():
+        imgs_w, segs_w = warp(1, 0, imgs, segs)
+        step(imgs_w, segs_w, lr, gen)
+
+    times['step_ms'] = cuda_ms(whole_step, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole_step()
+    torch.cuda.synchronize()
+    times['step_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times['step_img_per_s'] = 8 / times['step_ms'] * 1e3
+
+    # (c) One bfloat16 step (--mixed-precision O1): K1 must receive bfloat16.
+    seen = []
+
+    def spy(x, *args):
+        seen.append(x.dtype)
+        return fused_tail.fused_convt2_ce_mean(x, *args)
+
+    bf16_step = make_train_step(model, optimizer, 1, ignore, False,
+                                post_fn=make_device_post_fn(cfg, dtype=torch.bfloat16),
+                                amp_dtype=torch.bfloat16)
+
+    def whole_bf16_step():
+        imgs_w, segs_w = warp(1, 0, imgs, segs)
+        return bf16_step(imgs_w, segs_w, lr, gen)
+
+    steps.fused_convt2_ce_mean = spy
+    try:
+        bf16_ce = float(whole_bf16_step()['CE'])
+    finally:
+        steps.fused_convt2_ce_mean = fused_tail.fused_convt2_ce_mean
+    times['bf16_step_ms'] = cuda_ms(whole_bf16_step, iters=5, warmup=1)
+    times['bf16_step_img_per_s'] = 8 / times['bf16_step_ms'] * 1e3
+    print("train step at batch 8 on {}: {}".format(device_name, json.dumps(times)), flush=True)
+    print("bfloat16 step: K1 received {}, CE {:.6f}".format(seen, bf16_ce), flush=True)
+    if seen != [torch.bfloat16] or not np.isfinite(bf16_ce):
+        fail("the bfloat16 step did not hand K1 a bfloat16 activation: {} {}".format(seen, bf16_ce))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -310,10 +717,16 @@ def main():
         with open(path + '.log') as f:
             print(f.read().strip(), flush=True)
 
-    record = kernel_phase()
-    record['launches'] = main_path_phase(name)
+    k3 = kernel_phase()
+    k1 = k1_phase()
+    k2 = k2_phase()
+    k3['launches'] = main_path_phase(name)
+    counts, weights = train_phase(name)
+    for rec in k1 + [k2]:
+        rec['launches'] = counts[rec['name']]
+    train_step_phase(name, weights)
     print(smi, flush=True)
-    print(json.dumps({'kernels': [record]}), flush=True)
+    print(json.dumps({'kernels': [k3] + k1 + [k2]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}), flush=True)
 

@@ -1,4 +1,5 @@
 from .benchmark import benchmark
 from .test import test
+from .train_or_resume import train
 
-__all__ = ['benchmark', 'test']
+__all__ = ['benchmark', 'test', 'train']

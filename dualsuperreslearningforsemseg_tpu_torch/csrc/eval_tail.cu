@@ -20,6 +20,9 @@
 // a second one-block pass sums the partials in a fixed order (float64), so
 // the CE is the same from run to run.
 //
+// The per-pixel logits and CE terms come from tail_common.cuh, shared with
+// the train tail (fused_tail.cu).
+//
 // Layout: x is NCHW float32, contiguous; one thread per pre-tail pixel
 // (b, h, w), consecutive threads along w, so the C channel loads of a warp
 // are coalesced.  Each thread writes the 2x2 output block it owns: labels
@@ -39,9 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tail_common.cuh"
+
 namespace {
 
-constexpr int kC = 19;        // classes (Cityscapes); the wrapper checks it
+using dsrl_tail::kC;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFinalThreads = 1024;
@@ -56,18 +61,6 @@ __device__ __forceinline__ void warp_hist_add(int* hist, int bin, bool on) {
   }
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // counts layout: [area_pred(C), area_inter(C), area_target(C), correct, valid]
 __global__ void __launch_bounds__(kThreads)
 eval_tail_kernel(const float* __restrict__ x, const float* __restrict__ weight,
@@ -75,18 +68,12 @@ eval_tail_kernel(const float* __restrict__ x, const float* __restrict__ weight,
                  uint8_t* __restrict__ pred, double* __restrict__ ce_partials,
                  unsigned long long* __restrict__ counts,
                  int height, int width, long long npix, int ignore_label) {
-  __shared__ float s_w[4][kC][kC];   // [kh*2+kw][ci][co]
-  __shared__ float s_b[kC];
+  __shared__ dsrl_tail::TailParams s_p;
   __shared__ int s_hist[3][kC];
   __shared__ int s_cnt[2];           // correct, valid
   __shared__ double s_ce[kWarps];
 
-  for (int i = threadIdx.x; i < kC * kC * 4; i += kThreads) {
-    // IOHW source index i = ((ci*C + co)*2 + kh)*2 + kw
-    const int kpos = i & 3, co = (i >> 2) % kC, ci = (i >> 2) / kC;
-    s_w[kpos][ci][co] = weight[i];
-  }
-  if (threadIdx.x < kC) s_b[threadIdx.x] = bias[threadIdx.x];
+  dsrl_tail::load_tail_params(s_p, weight, bias);
   if (threadIdx.x < 3 * kC) (&s_hist[0][0])[threadIdx.x] = 0;
   if (threadIdx.x < 2) s_cnt[threadIdx.x] = 0;
   __syncthreads();
@@ -117,36 +104,14 @@ eval_tail_kernel(const float* __restrict__ x, const float* __restrict__ weight,
     uchar2 cls2;
 #pragma unroll
     for (int kw = 0; kw < 2; ++kw) {
-      const int kpos = kh * 2 + kw;
       const int lab = kw ? lab2.y : lab2.x;
       float l[kC];
-#pragma unroll
-      for (int co = 0; co < kC; ++co) l[co] = 0.f;
-#pragma unroll
-      for (int ci = 0; ci < kC; ++ci) {
-#pragma unroll
-        for (int co = 0; co < kC; ++co) l[co] = fmaf(xv[ci], s_w[kpos][ci][co], l[co]);
-      }
-      float m = l[0] += s_b[0];
-      int arg = 0;
-      bool nan = isnan(l[0]);
-#pragma unroll
-      for (int co = 1; co < kC; ++co) {
-        l[co] += s_b[co];
-        nan |= isnan(l[co]);
-        if (l[co] > m) { m = l[co]; arg = co; }
-      }
-      float z = 0.f, picked = 0.f;
-#pragma unroll
-      for (int co = 0; co < kC; ++co) {
-        z += expf(l[co] - m);
-        if (co == lab) picked = l[co];
-      }
-      const int cls = nan ? kC - 1 : arg;
+      dsrl_tail::tail_logits(xv, s_p, kh * 2 + kw, l);
+      const dsrl_tail::CeTerms t = dsrl_tail::ce_terms(l, lab);
+      const int cls = t.nan ? kC - 1 : t.arg;
       const bool valid = active && lab != ignore_label;
       const bool hit = valid && cls == lab;
-      // A NaN logit makes m or z NaN, so the NaN reaches the sum as in JAX.
-      if (valid) ce += m + logf(z) - picked;
+      if (valid) ce += dsrl_tail::ce_nll(t);
       n_valid += valid;
       n_correct += hit;
       warp_hist_add(s_hist[0], cls, valid);
@@ -157,9 +122,9 @@ eval_tail_kernel(const float* __restrict__ x, const float* __restrict__ weight,
     if (active) *reinterpret_cast<uchar2*>(pred + out0 + kh * out_w) = cls2;
   }
 
-  const double ce_w = warp_sum((double)ce);
-  const int correct_w = warp_sum(n_correct);
-  const int valid_w = warp_sum(n_valid);
+  const double ce_w = dsrl_tail::warp_sum((double)ce);
+  const int correct_w = dsrl_tail::warp_sum(n_correct);
+  const int valid_w = dsrl_tail::warp_sum(n_valid);
   if ((threadIdx.x & 31) == 0) {
     s_ce[threadIdx.x >> 5] = ce_w;
     atomicAdd(&s_cnt[0], correct_w);

@@ -13,9 +13,12 @@ The reference network (reference models/DSRL.py:11-186) as the JAX package's
 
 ``forward(x, pre_tail=True)`` stops after ``upsample16_pred.5``: it returns
 the (B, C, H, W) activation that the final ConvT (``upsample16_pred.6``)
-would expand to the (B, C, 2H, 2W) logits, so the eval step can hand that
-ConvT to the fused eval-tail kernel (ops/eval_tail.py) and never write the
-logits.  The SISR decoder and the FA transformers of stages 2 and 3 are not
+would expand to the (B, C, 2H, 2W) logits, so the eval and train steps can
+hand that ConvT to the fused tail kernels (ops/eval_tail.py,
+ops/fused_tail.py) and never write the logits.  In train mode that
+activation is the one after the last Dropout, as the JAX ``pre_tail``
+returns it (models/dsrl.py:196-216 there).  ``nn.Dropout`` is the exact
+dropout the JAX package's ``FastDropout`` approximates with u16 thresholds.  The SISR decoder and the FA transformers of stages 2 and 3 are not
 built; their keys in a stage-2/3 file load as "unexpected" under
 ``strict=False``.
 
@@ -88,3 +91,14 @@ class DSRL(nn.Module):
 
     def forward(self, x, pre_tail: bool = False):
         return self.SSSR_decoder(self.feature_extractor(x), pre_tail=pre_tail)
+
+
+def freeze_batch_norms(model: nn.Module) -> nn.Module:
+    """``--freeze-batch-norm``: every BatchNorm2d in eval mode, so it
+    normalises with its running statistics and updates none of them, while
+    its weight and bias still train (the JAX package's
+    ``use_running_average`` under ``freeze_bn``, models/norm.py:97-98)."""
+    for module in model.modules():
+        if isinstance(module, nn.BatchNorm2d):
+            module.eval()
+    return model

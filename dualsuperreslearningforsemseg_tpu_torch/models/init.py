@@ -15,9 +15,12 @@ weights.  Only weights made from a seed need this; loaded weights replace it.
 """
 
 import math
+import os.path
 
 import torch
 from torch import nn
+
+from ..utils import CAUTION, INFO
 
 
 @torch.no_grad()
@@ -37,3 +40,29 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             nn.init.zeros_(module.bias)
             module.reset_running_stats()
     return model
+
+
+def load_pretrained_backbone(model: nn.Module, weights_dir: str) -> bool:
+    """Loads the torchvision ResNet-101 zoo weights
+    ``<weights_dir>/resnet101_pretrained.pth`` into the backbone when the file
+    exists (JAX package commands/train_or_resume.py:60-87): ``fc.*`` dropped,
+    every key prefixed ``feature_extractor.backbone.``, and no backbone key
+    may be missing.  Without the file the seeded Kaiming init stays; the port
+    never downloads.  Returns whether the weights were loaded."""
+    from ..checkpoint import load_checkpoint_or_weights
+    from .state_dict import load_state_dict
+    path = os.path.join(weights_dir, 'resnet101_pretrained.pth')
+    if not os.path.isfile(path):
+        print(CAUTION("Pretrained ResNet101 weights unavailable ('{}' not found; nothing is "
+                      "downloaded); the backbone keeps its Kaiming initialization.".format(path)))
+        return False
+    zoo = load_checkpoint_or_weights(path)
+    prefixed = {'feature_extractor.backbone.' + k: v for k, v in zoo.items()
+                if not k.startswith('fc.')}
+    missing, _ = load_state_dict(model, prefixed, strict=False)
+    backbone_missing = [k for k in missing if k.startswith('feature_extractor.backbone.')
+                        and not k.endswith('num_batches_tracked')]
+    assert not backbone_missing, \
+        "BUG CHECK: Pretrained weights from model zoo for ResNet101 has missing keys: {}.".format(backbone_missing)
+    print(INFO("Pretrained ResNet101 weights loaded from '{}'.".format(path)))
+    return True

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the root of the checkout (a directory ``.gitignore``
 lists), and loaded with ``ctypes``.  The library's file name carries a hash
-of its source and flags, so an edited source is rebuilt and a built one is
-reused.  Building needs ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); nothing
+of its source, of every header under ``csrc/`` and of the flags, so an
+edited source or shared header is rebuilt and a built one is reused.  Building needs ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); nothing
 is compiled when a module is imported.
 """
 
@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), 'build', 'kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 # Every kernel source of the port; build_all compiles them side by side.
-KERNELS = ('eval_tail',)
+KERNELS = ('eval_tail', 'fused_tail', 'augment_post')
 
 
 def _nvcc():
@@ -36,10 +36,14 @@ def _nvcc():
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
-    with open(os.path.join(CSRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, '{}-{}.so'.format(name, digest))
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    ``csrc/*.cuh`` header (a kernel may include any of them) and the flags."""
+    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for fname in [name + '.cu'] + headers:
+        with open(os.path.join(CSRC_DIR, fname), 'rb') as f:
+            digest.update(fname.encode() + b'\0' + f.read())
+    return os.path.join(BUILD_DIR, '{}-{}.so'.format(name, digest.hexdigest()[:16]))
 
 
 def _start_build(name: str):

@@ -1,0 +1,181 @@
+"""Fused train tail: final ConvTranspose2d(C, C, 2, 2) + bias + masked CE,
+forward and backward, without writing the logits.
+
+The port of the JAX package's Pallas kernel ``convt_cols_ce_sum`` and its
+``custom_vjp`` (ops/pallas/fused_tail.py).  :func:`fused_convt2_ce_mean`
+is the train step's loss: for CUDA tensors it runs :class:`FusedConvT2CE`,
+whose forward launches ``csrc/fused_tail.cu``'s forward kernel
+(:func:`fused_tail_forward`) and whose backward launches its backward
+kernel (:func:`fused_tail_backward`); for CPU tensors it runs
+:func:`fused_convt2_ce_mean_plain`, the same function in plain PyTorch
+under autograd.  The kernels take the natural NCHW activation and the
+(B, 2H, 2W) uint8 labels, as the eval tail does (ops/eval_tail.py).
+
+Semantics (losses/cross_entropy.py): the mean NLL over pixels whose label
+is not ``ignore_label``, 0 when none is; a label in [C, ignore) picks a
+logit of 0 and adds its pixel's full logsumexp.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ..losses.cross_entropy import cross_entropy_sum
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+_BWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label: int = 255):
+    """The plain PyTorch version: materialises the logits.  Returns (CE sum
+    over valid pixels as float64, valid count int64), differentiable in x,
+    weight and bias."""
+    logits = F.conv_transpose2d(x.float(), weight, bias, stride=2).permute(0, 2, 3, 1)
+    return cross_entropy_sum(logits, labels, ignore_label)
+
+
+def _mean(ce_sum, count):
+    return torch.where(count > 0, ce_sum / count.clamp(min=1), 0.0).float()
+
+
+def fused_convt2_ce_mean_plain(x, weight, bias, labels, ignore_label: int = 255):
+    """The plain version of :func:`fused_convt2_ce_mean`."""
+    return _mean(*fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label))
+
+
+def _check(x, weight, bias, labels, ignore_label):
+    if x.dim() != 4:
+        raise ValueError("fused tail: x must be (B, C, H, W), got {}".format(tuple(x.shape)))
+    b, c, h, w = x.shape
+    if weight.shape != (c, c, 2, 2) or bias.shape != (c,):
+        raise ValueError("fused tail: weight must be ({0},{0},2,2) and bias ({0},), got {1} and {2}"
+                         .format(c, tuple(weight.shape), tuple(bias.shape)))
+    if labels.shape != (b, 2 * h, 2 * w):
+        raise ValueError("fused tail: labels must be {}, got {}".format((b, 2 * h, 2 * w),
+                                                                        tuple(labels.shape)))
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError("fused tail: x must be float32 or bfloat16, got {}".format(x.dtype))
+    for name, t, dtype in (('x', x, x.dtype), ('weight', weight, torch.float32),
+                           ('bias', bias, torch.float32), ('labels', labels, torch.uint8)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != x.device:
+            raise ValueError("fused tail: {} must be a contiguous {} tensor on {}, got {} {}{}"
+                             .format(name, dtype, x.device, t.dtype, t.device,
+                                     '' if t.is_contiguous() else ' (not contiguous)'))
+    if labels.data_ptr() % 2:
+        raise ValueError("fused tail: labels must start at an even address (2-byte loads)")
+    if x.numel() == 0 or not 0 <= ignore_label < 256:
+        raise ValueError("fused tail kernel: needs a non-empty batch and an ignore label in [0, 256)")
+
+
+def _library(c):
+    from ._build import load_library
+    lib = load_library('fused_tail')
+    if c != lib.dsrl_fused_tail_classes():
+        raise ValueError("fused tail kernel: built for {} classes, got {}".format(
+            lib.dsrl_fused_tail_classes(), c))
+    return lib
+
+
+def fused_tail_forward(x, weight, bias, labels, ignore_label: int = 255):
+    """Launches the forward kernel on CUDA tensors (and adds one to
+    ``fused_tail_forward.launches``) -> (ce_sum float64, count int64), both
+    0-d device tensors.  No autograd; see :class:`FusedConvT2CE`."""
+    _check(x, weight, bias, labels, ignore_label)
+    b, c, h, w = x.shape
+    lib = _library(c)
+    fn = lib.dsrl_fused_tail_fwd
+    fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
+    blocks = -(-b * h * w // lib.dsrl_fused_tail_fwd_threads())
+    ce_partials = torch.empty(blocks, dtype=torch.float64, device=x.device)
+    cnt_partials = torch.empty(blocks, dtype=torch.int64, device=x.device)
+    ce_sum = torch.empty((), dtype=torch.float64, device=x.device)
+    count = torch.empty((), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                 labels.data_ptr(), ce_partials.data_ptr(), cnt_partials.data_ptr(),
+                 ce_sum.data_ptr(), count.data_ptr(), b, h, w, ignore_label,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("fused tail forward kernel launch failed: CUDA error {}".format(err))
+    fused_tail_forward.launches += 1
+    return ce_sum, count
+
+
+def fused_tail_backward(x, weight, bias, labels, scale, ignore_label: int = 255):
+    """Launches the backward kernel on CUDA tensors (and adds one to
+    ``fused_tail_backward.launches``).  ``scale`` is the cotangent of the CE
+    sum as a 0-d float32 device tensor.  Returns (dX in x's dtype, dW, db
+    float32); two launches on the same inputs give bit-identical results."""
+    _check(x, weight, bias, labels, ignore_label)
+    if scale.dtype != torch.float32 or scale.numel() != 1 or scale.device != x.device:
+        raise ValueError("fused tail backward: scale must be one float32 value on {}".format(x.device))
+    b, c, h, w = x.shape
+    lib = _library(c)
+    fn = lib.dsrl_fused_tail_bwd
+    fn.argtypes, fn.restype = _BWD_SIGNATURE, ctypes.c_int
+    grid = ctypes.c_int(0)
+    dtype = _DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        err = lib.dsrl_fused_tail_bwd_grid(ctypes.c_int(dtype), ctypes.c_longlong(b * h * w),
+                                           ctypes.byref(grid))
+        if err:
+            raise RuntimeError("fused tail backward: grid query failed: CUDA error {}".format(err))
+        partials = torch.empty(grid.value * lib.dsrl_fused_tail_partial_size(),
+                               dtype=torch.float64, device=x.device)
+        dx = torch.empty_like(x)
+        dw = torch.empty_like(weight)
+        db = torch.empty_like(bias)
+        scale = scale.contiguous()
+        err = fn(dtype, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+                 scale.data_ptr(), dx.data_ptr(), partials.data_ptr(), grid.value,
+                 dw.data_ptr(), db.data_ptr(), b, h, w, ignore_label,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("fused tail backward kernel launch failed: CUDA error {}".format(err))
+    fused_tail_backward.launches += 1
+    return dx, dw, db
+
+
+fused_tail_forward.launches = 0
+fused_tail_backward.launches = 0
+
+
+class FusedConvT2CE(torch.autograd.Function):
+    """(ce_sum, count) of the fused tail on CUDA tensors, with the backward
+    kernel as its gradient (the JAX package's ``jax.custom_vjp``).  The
+    count is an integer and carries no gradient; the labels get none."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, labels, ignore_label):
+        ce_sum, count = fused_tail_forward(x, weight, bias, labels, ignore_label)
+        ctx.save_for_backward(x, weight, bias, labels)
+        ctx.ignore_label = ignore_label
+        ctx.mark_non_differentiable(count)
+        return ce_sum, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        x, weight, bias, labels = ctx.saved_tensors
+        scale = g_sum.detach().to(torch.float32).reshape(())
+        dx, dw, db = fused_tail_backward(x, weight, bias, labels, scale, ctx.ignore_label)
+        return dx, dw, db, None, None
+
+
+def fused_convt2_ce_mean(x, weight, bias, labels, ignore_label: int = 255):
+    """Mean CE of ``conv_transpose2d(x, weight, bias, stride=2)`` against
+    ``labels`` without writing the logits, as a float32 scalar:
+    ``where(count > 0, ce_sum / max(count, 1), 0)`` (fused_tail.py:301-322).
+    With every pixel ignored the loss is 0 and its gradients are exactly 0.
+
+    x (B, C, H, W) float32 or bfloat16, contiguous; weight (C, C, 2, 2) and
+    bias (C,) float32; labels (B, 2H, 2W) uint8.  CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == 'cpu':
+        return fused_convt2_ce_mean_plain(x, weight, bias, labels, ignore_label)
+    if x.device.type != 'cuda':
+        raise ValueError("fused_convt2_ce_mean runs on CPU or CUDA tensors, got {}".format(x.device))
+    return _mean(*FusedConvT2CE.apply(x, weight, bias, labels, ignore_label))

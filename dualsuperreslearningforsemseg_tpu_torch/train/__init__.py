@@ -1,3 +1,4 @@
-from .steps import make_eval_step
+from .steps import make_eval_step, make_train_step
+from .optim import make_sgd
 
-__all__ = ['make_eval_step']
+__all__ = ['make_eval_step', 'make_train_step', 'make_sgd']

@@ -2,6 +2,12 @@
 
 import os
 
+INVALID_FILENAME_CHARS = ('<', '>', ':', '"', '/', '\\', '|', '?')
+
+
+def isInvalidFilename(filename):
+    return any(c in filename for c in INVALID_FILENAME_CHARS)
+
 
 def getFilesWithExtension(dir_, extension_or_tuple, with_path=False):
     if not isinstance(extension_or_tuple, tuple):

@@ -3,7 +3,7 @@
 * No module of the port, and no line of ``chip_smoke.py``, imports JAX,
   Flax or the JAX package (an AST scan of every import).
 * The entry points run on ``cuda`` unless asked for the CPU: without a card
-  ``benchmark`` raises instead of falling back.
+  ``benchmark`` and ``train`` raise instead of falling back.
 """
 
 import ast
@@ -48,3 +48,11 @@ def test_benchmark_without_device_raises_on_a_cardless_machine(tmp_path):
     weights.write_bytes(b'')
     with pytest.raises(RuntimeError, match='--device cpu'):
         main(['benchmark', '--weights', str(weights), '--dataset', 'cityscapes', 'val'])
+
+
+def test_train_without_device_raises_on_a_cardless_machine(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card, so the default device is usable")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        main(['train', '--stage', '1', '--epochs', '1', '--dataset', 'cityscapes'])
