@@ -37,22 +37,52 @@ nothing of JAX.  Phases, each fatal on failure:
 5. K2: the photometric kernel against its plain version at (8, 512, 1024, 3)
    uint8, per-sample taps and matrices, half of them identity taps, whose
    float32 output must be bit-exact; float32 within atol 1e-6, bfloat16
-   within one ulp; timed;
-6. train: writes a synthetic train split of 24 frames at 1024x2048 beside
+   within one ulp; then its unshuffled second output (``unshuffle=8``, the
+   stages 2-3 SISR target) bit-exact in float32 with ``F.pixel_unshuffle``
+   of the plain planar output, bfloat16 within one ulp; timed;
+6. K4: the FA all-pairs kernels, forward and backward, against their plain
+   versions at (8, 256) (the stage-3 recipe), (3, 100) (ragged) and
+   (304, 1024), on rows with exact ties: the sums within rel 1e-5, da and
+   db bit-equal (integer sign counts times g), two launches bit-identical,
+   and the autograd mean's gradients equal to the plain autograd path's;
+   kernel, plain and ``torch.cdist`` timed;
+7. main path: writes a synthetic Cityscapes val split (36 frames at
+   1024x2048, batches 16+16+4) and seeded stage-1 ``.weights`` (the port's
+   init), then runs ``benchmark`` at full depth (3,4,23,3) and 256x512 through
+   the CLI's ``main`` in this process, with the kernel's launch count set to
+   0 just before and read just after (it must equal the batch count); checks
+   one batch's eval step against the plain full-logits composition; times a
+   warm eval step at batch 16 and its parts with CUDA events; runs
+   ``test --image-file`` on one frame;
+8. train: writes a synthetic train split of 24 frames at 1024x2048 beside
    the val split and runs ``train --stage 1 --epochs 1 --batch-size 8
-   --val-interval 1`` at full depth through the CLI's ``main``, with every
-   kernel's launch count set to 0 just before and read just after: K1
-   forward, K1 backward and K2 once per step (3), K3 once per val batch
-   (5); ``final.weights`` must load with strict=True and every loss be
-   finite; then ``benchmark`` of the trained weights;
-7. train step: one step with K1 against the same step with the plain tail
-   on copies of one model (dropout off, BatchNorm frozen): losses within
-   rel 1e-5, the updates SGD applied (lr * its momentum buffer after one
-   step) within 1e-4 of the largest update; then a
-   warm float32 step at batch 8 and its parts timed with CUDA events, and
-   one bfloat16 (``--mixed-precision O1``) step.
+   --val-interval 1 --experiment-id smoke`` at full depth through the CLI's
+   ``main``, with every kernel's launch count set to 0 just before and read
+   just after: K1 forward, K1 backward and K2 once per step (3), K3 once per
+   val batch (5), K4 never; ``final.weights`` must load with strict=True and
+   every loss be finite; then ``benchmark`` of the trained weights;
+9. stage-1 train step: one step with K1 against the same step with the
+   plain tail on copies of one model (dropout off, BatchNorm frozen): losses
+   within rel 1e-5, the updates SGD applied (lr * its momentum buffer after
+   one step) within 1e-4 of the largest update; then a warm float32 step at
+   batch 8 and its parts timed with CUDA events, and one bfloat16
+   (``--mixed-precision O1``) step;
+10. cascade: ``train --stage 2`` and then ``--stage 3`` in the same
+   experiment, at full depth, counts reset before each run and read after:
+   K1 forward and backward and K2 (unshuffling) 3 each, K3 5, and at stage 3
+   K4 forward 3 + 5 (train steps + val batches) and K4 backward 3; each
+   stage must print that it warm-starts from the stage before, every loss be
+   finite (MSE > 0, and FA > 0 at stage 3), and each ``final.weights`` load
+   into ``DSRL(stage=k)`` with strict=True; then ``benchmark`` of the
+   stage-3 weights;
+11. stage-3 train step: one step with K4 against the same step with the
+   dense FA (as phase 9, all four losses within rel 1e-5), the warm float32
+   step's parts (warp, K2 + resize, forward, K1, MSE, FA with its power
+   iteration and K4 forward, backward, SGD), and one bfloat16 step in which
+   K4 still receives float32.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, with every kernel's
+launches from the stage-3 run (phase 10); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 without a CUDA card or without the port beside this script.
 """
@@ -87,6 +117,21 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=200):
+    """Device time of one ``fn()`` replayed from a CUDA graph: the launches
+    without the host's Python and ctypes overhead around them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def tail_case(gen, b, h, w, exact):
@@ -317,6 +362,7 @@ def k2_params(gen, b):
 
 def k2_phase():
     import torch
+    import torch.nn.functional as F
     from dualsuperreslearningforsemseg_tpu_torch.ops.augment_post import photometric, photometric_plain
     gen = torch.Generator(device='cuda').manual_seed(99)
     results = {}
@@ -339,19 +385,137 @@ def k2_phase():
             if not ok:
                 fail("K2 differs from the plain version: {}".format(out))
             results[(b, dtype)] = (img, taps, cmat, coff, out)
+    # The unshuffled second output (stages 2-3): f32 bit-exact with
+    # F.pixel_unshuffle of the plain planar output, bf16 within one ulp.
+    for b, h, w in ((2, 16, 40), (8, 512, 1024)):
+        img = torch.randint(0, 256, (b, h, w, 3), generator=gen, device='cuda', dtype=torch.uint8)
+        taps, cmat, coff = k2_params(gen, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            planar, un = photometric(img, taps, cmat, coff, dtype, unshuffle=8)
+            ref = photometric_plain(img, taps, cmat, coff, dtype)
+            torch.cuda.synchronize()
+            ref_un = F.pixel_unshuffle(ref, 8)
+            diff = (un.float() - ref_un.float()).abs()
+            out = {'shape': (b, h, w), 'dtype': str(dtype), 'unshuffled_shape': tuple(un.shape),
+                   'unshuffled_max_abs_err': float(diff.max()),
+                   'unshuffled_bit_exact': bool(torch.equal(un, ref_un)),
+                   'planar_same_as_without': bool(torch.equal(
+                       planar, photometric(img, taps, cmat, coff, dtype)))}
+            print("K2 unshuffle vs plain: " + json.dumps(out), flush=True)
+            ok = out['planar_same_as_without'] and tuple(un.shape) == (b, 192, h // 8, w // 8)
+            ok = ok and (out['unshuffled_bit_exact'] if dtype == torch.float32
+                         else bool((diff <= bf16_ulp(ref_un)).all()))
+            if not ok:
+                fail("K2's unshuffled output differs: {}".format(out))
+            results[(b, dtype, 'un')] = (img, taps, cmat, coff, out)
     img, taps, cmat, coff, out = results[(8, torch.float32)]
-    ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.float32), iters=50)
-    plain_ms = cuda_ms(lambda: photometric_plain(img, taps, cmat, coff, torch.float32), iters=5, warmup=1)
-    bf16_ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.bfloat16), iters=50)
+    planar_ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.float32), iters=50)
+    planar_bf16_ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.bfloat16), iters=50)
+    img, taps, cmat, coff, out = results[(8, torch.float32, 'un')]
+    ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.float32, 8), iters=50)
+    plain_ms = cuda_ms(lambda: photometric_plain(img, taps, cmat, coff, torch.float32, 8),
+                       iters=5, warmup=1)
+    bf16_ms = cuda_ms(lambda: photometric(img, taps, cmat, coff, torch.bfloat16, 8), iters=50)
     pixels = img.numel() // 3
     rec = record('augment_post', 'dualsuperreslearningforsemseg_tpu_torch/csrc/augment_post.cu',
                  'dualsuperreslearningforsemseg_tpu/ops/pallas/augment_post.py:136',
-                 out['max_abs_err'], ms, plain_ms, img.numel() + pixels * 3 * 4 + 15 * 4 * img.shape[0],
-                 pixels * 78)
-    print("augment_post at (8, 512, 1024, 3) uint8 -> float32: kernel {:.4f} ms (bfloat16 out "
-          "{:.4f} ms), plain {:.3f} ms, bound {:.4f} ms ({})".format(
-              ms, bf16_ms, plain_ms, rec['bound_ms'], rec['bound_by']), flush=True)
+                 out['unshuffled_max_abs_err'], ms, plain_ms,
+                 img.numel() + 2 * pixels * 3 * 4 + 15 * 4 * img.shape[0], pixels * 78)
+    print("augment_post at (8, 512, 1024, 3) uint8 -> float32 planar + unshuffled: kernel {:.4f} ms "
+          "(bfloat16 out {:.4f} ms), plain {:.3f} ms, bound {:.4f} ms ({}); planar alone {:.4f} ms "
+          "(bfloat16 {:.4f} ms)".format(ms, bf16_ms, plain_ms, rec['bound_ms'], rec['bound_by'],
+                                        planar_ms, planar_bf16_ms), flush=True)
     return rec
+
+
+def k4_case(gen, rows, n):
+    """K4 inputs on the card: Gaussian rows with a quarter of each row's
+    values put on a coarse grid shared by a and b, so ties (sign 0) occur."""
+    import torch
+    a = torch.randn((rows, n), generator=gen, device='cuda')
+    b = torch.randn((rows, n), generator=gen, device='cuda')
+    for t in (a, b):
+        t[:, ::4] = torch.round(t[:, ::4] * 4) / 4
+    return a, b
+
+
+def k4_compare(a, b):
+    """K4 forward and backward against their plain versions on the same card
+    inputs: the sums within rel 1e-5, da and db bit-equal, two launches
+    bit-identical, and the mean's autograd gradients equal."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fa_pairwise import (
+        fa_pairwise_forward, fa_pairwise_forward_plain, fa_pairwise_backward,
+        fa_pairwise_backward_plain, fa_allpairs_abs_mean, fa_allpairs_abs_mean_plain)
+    g = torch.rand(a.shape[0], device='cuda') + 0.5
+    s_k, s_k2 = fa_pairwise_forward(a, b), fa_pairwise_forward(a, b)
+    (da_k, db_k), (da_k2, db_k2) = fa_pairwise_backward(a, b, g), fa_pairwise_backward(a, b, g)
+    torch.cuda.synchronize()
+    s_p = fa_pairwise_forward_plain(a, b)
+    da_p, db_p = fa_pairwise_backward_plain(a, b, g)
+    rel = float(((s_k.double() - s_p.double()).abs() / s_p.double().abs().clamp(min=1e-30)).max())
+    grad_err = max(float((da_k - da_p).abs().max()), float((db_k - db_p).abs().max()))
+    grads = []
+    for fn in (fa_allpairs_abs_mean, fa_allpairs_abs_mean_plain):
+        ar, br = (t.detach().clone().requires_grad_() for t in (a, b))
+        fn(ar, br).backward()
+        grads.append((ar.grad, br.grad))
+    out = {'shape': tuple(a.shape), 'sum_rel_err': rel,
+           'max_abs_err': float((s_k - s_p).abs().max()), 'grad_max_abs_err': grad_err,
+           'da_bit_equal': bool(torch.equal(da_k, da_p)), 'db_bit_equal': bool(torch.equal(db_k, db_p)),
+           'bit_identical_rerun': bool(torch.equal(s_k, s_k2) and torch.equal(da_k, da_k2)
+                                       and torch.equal(db_k, db_k2)),
+           'mean_grads_equal': all(torch.equal(x, y) for x, y in zip(*grads)),
+           'equal_pairs': int((a[:, :, None] == b[:, None, :]).sum())}
+    print("K4 vs plain: " + json.dumps(out), flush=True)
+    if not (rel <= 1e-5 and out['da_bit_equal'] and out['db_bit_equal']
+            and out['bit_identical_rerun'] and out['mean_grads_equal']):
+        fail("K4 differs from the plain version: {}".format(out))
+    return out
+
+
+def k4_phase():
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fa_pairwise import (
+        fa_pairwise_forward, fa_pairwise_forward_plain, fa_pairwise_backward,
+        fa_pairwise_backward_plain)
+    gen = torch.Generator(device='cuda').manual_seed(777)
+    cases = {shape: k4_case(gen, *shape) for shape in ((8, 256), (3, 100), (304, 1024))}
+    results = {shape: k4_compare(*ab) for shape, ab in cases.items()}
+    records = []
+    for (rows, n), (a, b) in cases.items():
+        if (rows, n) == (3, 100):
+            continue
+        g = torch.ones(rows, device='cuda')
+        iters = 200 if rows == 8 else 20
+        t = {'fwd': cuda_ms(lambda: fa_pairwise_forward(a, b), iters=iters),
+             'bwd': cuda_ms(lambda: fa_pairwise_backward(a, b, g), iters=iters),
+             'plain_fwd': cuda_ms(lambda: fa_pairwise_forward_plain(a, b), iters=10, warmup=2),
+             'plain_bwd': cuda_ms(lambda: fa_pairwise_backward_plain(a, b, g), iters=10, warmup=2),
+             'cdist': cuda_ms(lambda: torch.cdist(a[..., None], b[..., None], p=1).sum((1, 2)),
+                              iters=10, warmup=2),
+             'fwd_graph': graph_ms(lambda: fa_pairwise_forward(a, b)),
+             'bwd_graph': graph_ms(lambda: fa_pairwise_backward(a, b, g))}
+        pairs = rows * n * n
+        src = 'dualsuperreslearningforsemseg_tpu_torch/csrc/fa_pairwise.cu'
+        fwd = record('fa_pairwise_forward', src,
+                     'dualsuperreslearningforsemseg_tpu/ops/pallas/fa_pairwise.py:116',
+                     results[(rows, n)]['max_abs_err'], t['fwd'], t['plain_fwd'],
+                     8 * rows * n + 4 * rows, 3 * pairs)
+        fwd['library_ms'] = t['cdist']
+        bwd = record('fa_pairwise_backward', src,
+                     'dualsuperreslearningforsemseg_tpu/ops/pallas/fa_pairwise.py:145',
+                     results[(rows, n)]['grad_max_abs_err'], t['bwd'], t['plain_bwd'],
+                     16 * rows * n + 4 * rows, 4 * pairs)
+        print("K4 at ({}, {}): forward {:.5f} ms (replayed from a CUDA graph {:.5f} ms; plain {:.4f}, "
+              "cdist {:.4f}, bound {:.5f} {}), backward {:.5f} ms (graph {:.5f} ms; plain {:.4f}, "
+              "bound {:.5f} {})".format(
+                  rows, n, fwd['ms'], t['fwd_graph'], fwd['plain_ms'], t['cdist'], fwd['bound_ms'],
+                  fwd['bound_by'], bwd['ms'], t['bwd_graph'], bwd['plain_ms'], bwd['bound_ms'],
+                  bwd['bound_by']), flush=True)
+        if rows == 8:
+            records = [fwd, bwd]
+    return records
 
 
 def check_eval_step(model, loader_batch, transform, eval_step, tie_eps=1e-4):
@@ -366,7 +530,7 @@ def check_eval_step(model, loader_batch, transform, eval_step, tie_eps=1e-4):
     losses, pred, areas, acc = eval_step(model, img_lo, img_hi, seg_hi,
                                          torch.ones(imgs.shape[0], device='cuda'))
     with torch.inference_mode():
-        logits = model(img_lo.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+        logits = model(img_lo.permute(0, 3, 1, 2).contiguous())[0].permute(0, 2, 3, 1)
         ce_ref = float(cross_entropy_loss(logits, seg_hi))
         pred_ref = argmax_lastdim(logits)
         areas_ref = batch_histograms(pred_ref, seg_hi, NUM_CLASSES)
@@ -397,7 +561,7 @@ def step_breakdown(model, batch, transform, eval_step, device_name):
     tail = model.SSSR_decoder.upsample16_pred[6]
     with torch.inference_mode():
         x = img_lo.permute(0, 3, 1, 2).contiguous()
-        y = model(x, pre_tail=True)
+        y = model(x, pre_tail=True)[0]
         times = {
             'transform_ms': cuda_ms(lambda: transform(imgs, segs), iters=5),
             'forward_pre_tail_ms': cuda_ms(lambda: model(x, pre_tail=True), iters=5, warmup=2),
@@ -493,10 +657,13 @@ def main_path_phase(device_name):
 def reset_counts():
     from dualsuperreslearningforsemseg_tpu_torch.ops.augment_post import photometric
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fa_pairwise import (
+        fa_pairwise_forward, fa_pairwise_backward)
     from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
         fused_tail_forward, fused_tail_backward)
     fns = {'fused_tail_forward': fused_tail_forward, 'fused_tail_backward': fused_tail_backward,
-           'augment_post': photometric, 'eval_tail': eval_tail}
+           'augment_post': photometric, 'eval_tail': eval_tail,
+           'fa_pairwise_forward': fa_pairwise_forward, 'fa_pairwise_backward': fa_pairwise_backward}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -530,7 +697,7 @@ def train_phase(device_name):
               res['val']['CE'], res['val']['mIoU'], res['val']['accuracy'], peak_gib,
               json.dumps(counts)), flush=True)
     want = {'fused_tail_forward': steps, 'fused_tail_backward': steps, 'augment_post': steps,
-            'eval_tail': val_batches}
+            'eval_tail': val_batches, 'fa_pairwise_forward': 0, 'fa_pairwise_backward': 0}
     if counts != want or res['steps'] != steps:
         fail("train launched {} for {} steps and {} val batches (want {})".format(
             counts, res['steps'], val_batches, want))
@@ -559,97 +726,212 @@ def no_dropout(model):
     return model
 
 
-def train_step_phase(device_name, weights):
-    """One step with K1 against the same step with the plain tail, then the
-    warm step's breakdown at batch 8 (float32) and one bfloat16 step."""
+class _Tee:
+    """Writes to several text streams (the CLI's output is shown and kept)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def cascade_phase(device_name):
+    """``train --stage 2`` and then ``--stage 3`` at full depth through the
+    CLI, in the stage-1 run's experiment, each warm-starting from the stage
+    before; returns the launch counts of the stage-3 run and its weights."""
+    import contextlib
+    import io
+    import math
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main as cli_main
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, load_state_dict
+    steps, val_batches = 24 // 8, -(-36 // 8)
+    for stage in (2, 3):
+        previous = os.path.join('experiments', 'smoke', 'weights', 'stage{}'.format(stage - 1),
+                                'final.weights')
+        torch.cuda.reset_peak_memory_stats()
+        fns = reset_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+            res = cli_main(['train', '--stage', str(stage), '--epochs', '1', '--batch-size', '8',
+                            '--dataset', 'cityscapes', '--val-interval', '1',
+                            '--experiment-id', 'smoke'])
+        counts = {name: fn.launches for name, fn in fns.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        train, val = res['train_losses'][0], res['val']
+        print("train --stage {} on {}: {} steps in {:.2f} s end to end, train losses {}, val losses "
+              "CE {:.6f} MSE {:.6f} FA {:.6f}, mIoU {:.4f} %, peak device memory {:.2f} GiB, "
+              "launches {}".format(stage, device_name, res['steps'], res['seconds'],
+                                   json.dumps(train), val['CE'], val['MSE'], val['FA'], val['mIoU'],
+                                   peak_gib, json.dumps(counts)), flush=True)
+        k4 = stage == 3
+        want = {'fused_tail_forward': steps, 'fused_tail_backward': steps, 'augment_post': steps,
+                'eval_tail': val_batches, 'fa_pairwise_forward': (steps + val_batches) if k4 else 0,
+                'fa_pairwise_backward': steps if k4 else 0}
+        if counts != want or res['steps'] != steps:
+            fail("train --stage {} launched {} (want {})".format(stage, counts, want))
+        found = "'{}' weights file from previous stage was found".format(previous)
+        if res['warm_start'] != previous or found not in log.getvalue():
+            fail("stage {} did not warm-start from {}: {}".format(stage, previous, res['warm_start']))
+        losses = list(train.values()) + [val[k] for k in ('CE', 'MSE', 'FA', 'Total')]
+        if not all(math.isfinite(v) for v in losses) or not (train['MSE'] > 0 and val['MSE'] > 0) \
+                or (k4 and not (train['FA'] > 0 and val['FA'] > 0)):
+            fail("stage {} losses: {} {}".format(stage, train, val))
+        state = load_checkpoint_or_weights(res['final_weights'])['model_state_dict']
+        load_state_dict(DSRL(num_classes=NUM_CLASSES, stage=stage), state, strict=True)
+        print("stage {} warm-started from {}; its final.weights loads into DSRL(stage={}) with "
+              "strict=True ({} tensors)".format(stage, previous, stage, len(state)), flush=True)
+    bench = cli_main(['benchmark', '--weights', res['final_weights'], '--dataset', 'cityscapes',
+                      'val', '--batch-size', '16'])
+    print("benchmark of the stage-3 weights (stage-1 model, strict=False): CE {:.6f}, mIoU {:.4f} %"
+          .format(bench['CE'], bench['mIoU']), flush=True)
+    if not np.isfinite(bench['CE']):
+        fail("benchmark of the stage-3 weights: {}".format(bench))
+    return counts, res['final_weights']
+
+
+def load_stage_model(weights, stage):
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, load_state_dict
+    model = DSRL(num_classes=NUM_CLASSES, stage=stage)
+    load_state_dict(model, load_checkpoint_or_weights(weights)['model_state_dict'], strict=True)
+    return model.to(torch.device('cuda'))
+
+
+def sgd_updates(optimizer, model, lr):
+    """The update SGD applied, lr * (grad + wd * p), read from its momentum
+    buffers, since p_after - p_before is quantised to an ulp of p."""
+    return {k: lr * optimizer.state[v]['momentum_buffer'] for k, v in model.named_parameters()}
+
+
+def train_step_phase(device_name, weights, stage):
+    """One step against the same step with a plain part (stage 1: the plain
+    tail instead of K1; stage 3: the dense FA instead of K4), then the warm
+    step's breakdown at batch 8 (float32) and one bfloat16 step."""
     import copy
     import numpy as np
     import torch
     from dualsuperreslearningforsemseg_tpu_torch import settings
-    from dualsuperreslearningforsemseg_tpu_torch.commands.test import load_model
     from dualsuperreslearningforsemseg_tpu_torch.data import (
         AugmentConfig, CityscapesDataset, make_warp_transform, make_device_post_fn)
-    from dualsuperreslearningforsemseg_tpu_torch.models import freeze_batch_norms
-    from dualsuperreslearningforsemseg_tpu_torch.ops import fused_tail
+    from dualsuperreslearningforsemseg_tpu_torch.losses import fa as fa_module, mse_loss
+    from dualsuperreslearningforsemseg_tpu_torch.models.dsrl import SISR_UPSCALE
+    from dualsuperreslearningforsemseg_tpu_torch.ops import fa_pairwise, fused_tail
     from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step, make_sgd, steps
     ds = settings.DATASETS['cityscapes']['settings']
     cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
                         mean=ds.MEAN, std=ds.STD)
+    unshuffle = SISR_UPSCALE if stage > 1 else 0
     train_set = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='train')
     imgs, segs = (torch.from_numpy(np.stack(a)).cuda()
                   for a in zip(*(train_set[i] for i in range(8))))
     warp = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED)
     lr, ignore = 0.006, ds.IGNORE_CLASS_LABEL
+    w1, w2 = settings.DEFAULT_LOSS_WEIGHTS
 
-    # (a) K1 against the plain tail, one step each from the same state.
-    base = no_dropout(load_model(weights, NUM_CLASSES, torch.device('cuda')))
+    # (a) The kernel against the plain part, one step each from the same state.
+    if stage == 1:
+        swap = ('fused_convt2_ce_mean', fused_tail.fused_convt2_ce_mean,
+                fused_tail.fused_convt2_ce_mean_plain, 'K1', 'the plain tail')
+    else:
+        swap = ('fa_loss', fa_module.fa_loss, lambda a, b: fa_module.fa_loss(a, b, impl='dense'),
+                'K4', 'the dense FA')
+    base = no_dropout(load_stage_model(weights, stage))
     runs = {}
-    for name, tail_fn in (('kernel', fused_tail.fused_convt2_ce_mean),
-                          ('plain', fused_tail.fused_convt2_ce_mean_plain)):
+    for name, fn in (('kernel', swap[1]), ('plain', swap[2])):
         model = copy.deepcopy(base)
         optimizer = make_sgd(model, lr, 0.9, 0.0005)
-        step = make_train_step(model, optimizer, 1, ignore, True, post_fn=make_device_post_fn(cfg))
-        steps.fused_convt2_ce_mean = tail_fn
+        step = make_train_step(model, optimizer, stage, w1, w2, ignore, True,
+                               post_fn=make_device_post_fn(cfg, unshuffle_hi=unshuffle))
+        setattr(steps, swap[0], fn)
         try:
             imgs_w, segs_w = warp(1, 0, imgs, segs)
             losses = step(imgs_w, segs_w, lr, torch.Generator(device='cuda').manual_seed(5))
             torch.cuda.synchronize()
         finally:
-            steps.fused_convt2_ce_mean = fused_tail.fused_convt2_ce_mean
-        # The update SGD applied, lr * (grad + wd * p): read from its momentum
-        # buffer, since p_after - p_before is quantised to an ulp of p.
-        runs[name] = (float(losses['CE']),
-                      {k: lr * optimizer.state[v]['momentum_buffer']
-                       for k, v in model.named_parameters()})
-    (ce_k, upd_k), (ce_p, upd_p) = runs['kernel'], runs['plain']
+            setattr(steps, swap[0], swap[1])
+        runs[name] = ({k: float(v) for k, v in losses.items()}, sgd_updates(optimizer, model, lr))
+    (loss_k, upd_k), (loss_p, upd_p) = runs['kernel'], runs['plain']
     largest = max(float(u.abs().max()) for u in upd_p.values())
     worst = max(float((upd_k[k] - upd_p[k]).abs().max()) for k in upd_p)
-    out = {'ce_kernel': ce_k, 'ce_plain': ce_p, 'ce_rel_err': abs(ce_k - ce_p) / abs(ce_p),
+    rel = {k: abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30) for k in loss_p}
+    out = {'losses_kernel': loss_k, 'losses_plain': loss_p, 'rel_err': rel,
            'largest_update': largest, 'max_update_diff': worst,
            'update_diff_over_largest': worst / largest, 'tensors': len(upd_p)}
-    print("train step with K1 vs the plain tail (dropout off, BN frozen): " + json.dumps(out), flush=True)
-    if not (out['ce_rel_err'] <= 1e-5 and worst <= 1e-4 * largest):
-        fail("train step with K1 disagrees with the plain tail: {}".format(out))
+    print("stage-{} train step with {} vs {} (dropout off, BN frozen): {}".format(
+        stage, swap[3], swap[4], json.dumps(out)), flush=True)
+    if not (max(rel.values()) <= 1e-5 and worst <= 1e-4 * largest) \
+            or (stage == 3 and not loss_k['FA'] > 0):
+        fail("stage-{} train step with {} disagrees with {}: {}".format(stage, swap[3], swap[4], out))
     del runs, upd_k, upd_p, base
 
     # (b) The warm float32 step at batch 8 and its parts.
-    model = load_model(weights, NUM_CLASSES, torch.device('cuda'))
+    model = load_stage_model(weights, stage)
     optimizer = make_sgd(model, lr, 0.9, 0.0005)
-    post = make_device_post_fn(cfg)
+    post = make_device_post_fn(cfg, unshuffle_hi=unshuffle)
     gen = torch.Generator(device='cuda').manual_seed(6)
-    step = make_train_step(model, optimizer, 1, ignore, False, post_fn=post)
+    step = make_train_step(model, optimizer, stage, w1, w2, ignore, False, post_fn=post)
     tail = model.SSSR_decoder.upsample16_pred[6]
-    parts = ('warp', 'k2_resize', 'forward', 'k1_forward', 'backward', 'optimizer')
+    parts = ['warp', 'k2_resize', 'forward', 'k1_forward'] + (['mse', 'fa'] if stage == 3 else []) \
+        + ['backward', 'optimizer']
     totals = dict.fromkeys(parts, 0.0)
     n_timed, n_warm = 5, 2
     for i in range(n_warm + n_timed):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
-        ev[0].record()
+        marks = iter(ev)
+        next(marks).record()
         imgs_w, segs_w = warp(1, i, imgs, segs)
-        ev[1].record()
-        (img_lo, _), (seg_hi, _) = post(imgs_w, segs_w, gen)
-        ev[2].record()
+        next(marks).record()
+        (img_lo, img_hi), (seg_hi, _) = post(imgs_w, segs_w, gen)
+        next(marks).record()
         model.train()
         for group in optimizer.param_groups:
             group['lr'] = lr
-        y = model(img_lo.permute(0, 3, 1, 2).contiguous(), pre_tail=True)
-        ev[3].record()
-        ce = fused_tail.fused_convt2_ce_mean(y, tail.weight, tail.bias, seg_hi.contiguous(), ignore)
-        ev[4].record()
+        sssr, sisr, sssr_t, sisr_t = model(img_lo.permute(0, 3, 1, 2).contiguous(), pre_tail=True)
+        next(marks).record()
+        total = fused_tail.fused_convt2_ce_mean(sssr, tail.weight, tail.bias, seg_hi.contiguous(),
+                                                ignore)
+        next(marks).record()
+        if stage == 3:
+            total = total + w1 * mse_loss(sisr, img_hi.permute(0, 3, 1, 2))
+            next(marks).record()
+            total = total + w2 * fa_module.fa_loss(sssr_t, sisr_t)
+            next(marks).record()
         optimizer.zero_grad(set_to_none=True)
-        ce.backward()
-        ev[5].record()
+        total.backward()
+        next(marks).record()
         optimizer.step()
-        ev[6].record()
+        next(marks).record()
         torch.cuda.synchronize()
         if i >= n_warm:
             for k, name in enumerate(parts):
                 totals[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
     times = {name + '_ms': totals[name] for name in parts}
     times['k1_backward_ms (inside backward)'] = cuda_ms(
-        lambda: fused_tail.fused_tail_backward(y.detach(), tail.weight.detach(), tail.bias.detach(),
+        lambda: fused_tail.fused_tail_backward(sssr.detach(), tail.weight.detach(), tail.bias.detach(),
                                                seg_hi.contiguous(), torch.ones((), device='cuda')),
         iters=10)
+    if stage == 3:
+        pooled = [fa_module._pooled_slices(t.detach(), 8) for t in (sssr_t, sisr_t)]
+        rows = [fa_module._similarity_rows(p) for p in pooled]
+        g = torch.ones(rows[0].shape[0], device='cuda')
+        times['fa_power_iteration_ms (inside fa, both maps)'] = cuda_ms(
+            lambda: [fa_module._spectral_norm_hw(p) for p in pooled], iters=10)
+        times['k4_forward_ms (inside fa)'] = cuda_ms(
+            lambda: fa_pairwise.fa_pairwise_forward(*rows), iters=50)
+        times['k4_backward_ms (inside backward)'] = cuda_ms(
+            lambda: fa_pairwise.fa_pairwise_backward(*rows, g), iters=50)
+        times['fa_rows_shape'] = list(rows[0].shape)
 
     def whole_step():
         imgs_w, segs_w = warp(1, 0, imgs, segs)
@@ -663,32 +945,46 @@ def train_step_phase(device_name, weights):
     times['step_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     times['step_img_per_s'] = 8 / times['step_ms'] * 1e3
 
-    # (c) One bfloat16 step (--mixed-precision O1): K1 must receive bfloat16.
-    seen = []
+    # (c) One bfloat16 step (--mixed-precision O1): K1 must receive bfloat16,
+    # and at stage 3 K4 float32.
+    seen = {'K1': [], 'K4': []}
 
-    def spy(x, *args):
-        seen.append(x.dtype)
+    def spy_k1(x, *args):
+        seen['K1'].append(x.dtype)
         return fused_tail.fused_convt2_ce_mean(x, *args)
 
-    bf16_step = make_train_step(model, optimizer, 1, ignore, False,
-                                post_fn=make_device_post_fn(cfg, dtype=torch.bfloat16),
+    def spy_k4(a, b):
+        seen['K4'].append(a.dtype)
+        return k4_mean(a, b)
+
+    bf16_step = make_train_step(model, optimizer, stage, w1, w2, ignore, False,
+                                post_fn=make_device_post_fn(cfg, dtype=torch.bfloat16,
+                                                            unshuffle_hi=unshuffle),
                                 amp_dtype=torch.bfloat16)
 
     def whole_bf16_step():
         imgs_w, segs_w = warp(1, 0, imgs, segs)
         return bf16_step(imgs_w, segs_w, lr, gen)
 
-    steps.fused_convt2_ce_mean = spy
+    k4_mean = fa_module.fa_allpairs_abs_mean
+    steps.fused_convt2_ce_mean, fa_module.fa_allpairs_abs_mean = spy_k1, spy_k4
     try:
-        bf16_ce = float(whole_bf16_step()['CE'])
+        bf16_losses = {k: (float(v), str(v.dtype)) for k, v in whole_bf16_step().items()}
     finally:
         steps.fused_convt2_ce_mean = fused_tail.fused_convt2_ce_mean
+        fa_module.fa_allpairs_abs_mean = k4_mean
     times['bf16_step_ms'] = cuda_ms(whole_bf16_step, iters=5, warmup=1)
     times['bf16_step_img_per_s'] = 8 / times['bf16_step_ms'] * 1e3
-    print("train step at batch 8 on {}: {}".format(device_name, json.dumps(times)), flush=True)
-    print("bfloat16 step: K1 received {}, CE {:.6f}".format(seen, bf16_ce), flush=True)
-    if seen != [torch.bfloat16] or not np.isfinite(bf16_ce):
-        fail("the bfloat16 step did not hand K1 a bfloat16 activation: {} {}".format(seen, bf16_ce))
+    print("stage-{} train step at batch 8 on {}: {}".format(stage, device_name, json.dumps(times)),
+          flush=True)
+    print("stage-{} bfloat16 step: K1 received {}, K4 received {}, losses {}".format(
+        stage, seen['K1'], seen['K4'], json.dumps(bf16_losses)), flush=True)
+    want_k4 = [torch.float32] if stage == 3 else []
+    if seen['K1'] != [torch.bfloat16] or seen['K4'] != want_k4 \
+            or not all(np.isfinite(v) and d == 'torch.float32' for v, d in bf16_losses.values()):
+        fail("the bfloat16 step handed K1 {} and K4 {}: {}".format(seen['K1'], seen['K4'],
+                                                                  bf16_losses))
+    return times
 
 
 def main():
@@ -720,13 +1016,17 @@ def main():
     k3 = kernel_phase()
     k1 = k1_phase()
     k2 = k2_phase()
-    k3['launches'] = main_path_phase(name)
-    counts, weights = train_phase(name)
-    for rec in k1 + [k2]:
+    k4 = k4_phase()
+    main_path_phase(name)
+    _, weights1 = train_phase(name)
+    train_step_phase(name, weights1, 1)
+    counts, weights3 = cascade_phase(name)
+    kernels = [k3] + k1 + [k2] + k4
+    for rec in kernels:
         rec['launches'] = counts[rec['name']]
-    train_step_phase(name, weights)
+    train_step_phase(name, weights3, 3)
     print(smi, flush=True)
-    print(json.dumps({'kernels': [k3] + k1 + [k2]}), flush=True)
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}), flush=True)
 

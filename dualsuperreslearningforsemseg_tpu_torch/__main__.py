@@ -1,16 +1,21 @@
 """Command line of the PyTorch port:
 
-    python -m dualsuperreslearningforsemseg_tpu_torch train --stage 1 --epochs N --dataset cityscapes
+    python -m dualsuperreslearningforsemseg_tpu_torch train --stage 1 --epochs N --dataset cityscapes --experiment-id X
+    python -m dualsuperreslearningforsemseg_tpu_torch train --stage 2 --epochs N --dataset cityscapes --experiment-id X
+    python -m dualsuperreslearningforsemseg_tpu_torch train --stage 3 --epochs N --dataset cityscapes --experiment-id X
     python -m dualsuperreslearningforsemseg_tpu_torch benchmark --weights W --dataset cityscapes val
     python -m dualsuperreslearningforsemseg_tpu_torch test --image-file IMG --weights W
 
 The ``train``, ``benchmark`` and ``test`` subcommands take the arguments of
 ``main.py``'s (reference main.py:112-208), with ``cuda`` (the default) and
-``cpu`` as the devices.  ``train`` runs stage 1; the options it does not
-port yet (stages 2-3, ``--early-stopping``, ``--distributed``,
-``--profile``, ``--dry-run``, ``--debug-nans``) exit with an error naming
-the ROADMAP queue.  ``test``'s dataset mode and ``--compiled-model`` are
-not ported yet.
+``cpu`` as the devices.  ``train`` runs stages 1, 2 and 3; stage k >= 2
+warm-starts from stage k-1's ``final.weights`` in the same experiment, so
+an existing experiment directory is taken at stages 2 and 3 (the JAX CLI
+refuses any existing one, so its cascade finds no earlier stage inside an
+experiment).  The options ``train`` does not port yet
+(``--early-stopping``, ``--distributed``, ``--profile``, ``--dry-run``,
+``--debug-nans``) exit with an error naming the ROADMAP queue.  ``test``'s
+dataset mode and ``--compiled-model`` are not ported yet.
 """
 
 import argparse
@@ -51,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     train_parser.add_argument('--momentum', type=float, default=settings.DEFAULT_MOMENTUM, help="SGD momentum coefficient")
     train_parser.add_argument('--weights-decay', type=float, default=settings.DEFAULT_WEIGHTS_DECAY, help="SGD weight decay (L2)")
     train_parser.add_argument('--poly-power', type=float, default=settings.DEFAULT_POLY_POWER, help="Exponent of the polynomial decay schedule")
-    train_parser.add_argument('--stage', required=True, type=int, choices=settings.STAGES, help="Training stage: 1 = segmentation only (stages 2 and 3 are not ported yet)")
+    train_parser.add_argument('--stage', required=True, type=int, choices=settings.STAGES, help="Training stage: 1 = segmentation only, 2 = + SISR branch (MSE), 3 = + feature affinity (FA)")
     train_parser.add_argument('--w1', type=float, default=settings.DEFAULT_LOSS_WEIGHTS[0], help="SISR MSE loss weight (stage >= 2)")
     train_parser.add_argument('--w2', type=float, default=settings.DEFAULT_LOSS_WEIGHTS[1], help="Feature-affinity loss weight (stage 3)")
     train_parser.add_argument('--freeze-batch-norm', action='store_true', help="Use running statistics in every BatchNorm during training (no stat updates)")
@@ -108,9 +113,6 @@ def _validate_train(args):
                        ('weights_decay', '--weights-decay'), ('poly_power', '--poly-power')):
         if not getattr(args, name) > 0.:
             raise argparse.ArgumentTypeError("{} must be > 0.".format(flag))
-    if args.stage != 1:
-        raise argparse.ArgumentTypeError("Stage {} training is not ported yet (ROADMAP.md queue 1, the "
-                                         "stages 2-3 slice).".format(args.stage))
     for name in _NOT_PORTED:
         if getattr(args, name):
             raise argparse.ArgumentTypeError("--{} is not ported yet (ROADMAP.md queue 3).".format(
@@ -120,7 +122,7 @@ def _validate_train(args):
             raise argparse.ArgumentTypeError("--experiment-id may not contain any of: {}.".format(
                 ', '.join(INVALID_FILENAME_CHARS)))
         args.experiment_id = os.path.join(settings.EXPERIMENTS_ROOT_DIR, args.experiment_id)
-        if os.path.isdir(args.experiment_id):
+        if args.stage == 1 and os.path.isdir(args.experiment_id):
             raise argparse.ArgumentTypeError("An experiment named '{}' already exists; pick a new id (experiment directories are never overwritten).".format(os.path.basename(args.experiment_id)))
     weights_dir = os.path.join(args.experiment_id, settings.WEIGHTS_DIR.format(stage=args.stage))
     if os.path.isfile(os.path.join(weights_dir, settings.FINAL_WEIGHTS_FILE)):

@@ -48,7 +48,7 @@ def _build_pipeline(weights, ds_settings, device):
             x = (torch.tensor(img_u8, device=device).float() / 255.0 - mean) / std
             x = F.interpolate(x.permute(2, 0, 1)[None], size=settings.MODEL_INPUT_SIZE,
                               mode='bilinear', align_corners=True)
-            logits = model(x)
+            logits = model(x)[0]
             return argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8).cpu().numpy()
 
     return pipeline

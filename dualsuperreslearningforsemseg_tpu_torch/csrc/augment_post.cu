@@ -5,7 +5,12 @@
 //
 // Replaces the Pallas TPU kernel `photometric_planar` / `_kernel` in
 // dualsuperreslearningforsemseg_tpu/ops/pallas/augment_post.py (pallas_call
-// at line 136), without its strip/halo machinery or its H % 8, W % 128 rule.
+// at line 136), without its strip/halo machinery or its H % 8, W % 128 rule,
+// and with its second output (`unshuffle=r`, lines 88-100 there), which
+// Mosaic could not lower on the TPU: the pixel-unshuffled image
+// (B, 3*r*r, H/r, W/r), channel c*r*r + i*r + j holding pixel
+// (r*h + i, r*w + j) of channel c, the target layout of the SISR MSE loss.
+// Here it is a second store of each value from registers.
 // Per output pixel (b, y, x) and channel c, with taps (t0, t1, t2):
 //   v[x'] = t0 * img[y-1, x', c] + t1 * img[y, x', c] + t2 * img[y+1, x', c]
 //   h_c   = t0 * v[x-1] + t1 * v[x] + t2 * v[x+1]
@@ -19,15 +24,18 @@
 // Layout: it reads the warped NHWC uint8 batch (B, H, W, 3) directly, which
 // fuses away the transpose the JAX package makes before its kernel
 // (data/augment.py:486), and writes the planar (B, 3, H, W) result in
-// float32 or bfloat16.  One thread per output pixel, a block per 256
-// columns of one row of one sample; the sample's 15 parameters (taps, cmat,
-// coff) sit in shared memory.  The 3x3 neighbourhood of each pixel is read
-// from global memory; neighbouring threads share it through L1.
+// float32 or bfloat16, and with r > 0 the unshuffled image too (a warp's
+// store there lands in 8 channel planes, 4 values in each).  One thread per
+// output pixel, a block per 256 columns of one row of one sample; the
+// sample's 15 parameters (taps, cmat, coff) sit in shared memory.  The 3x3
+// neighbourhood of each pixel is read from global memory; neighbouring
+// threads share it through L1.
 //
 // Bound on an H100 SXM (3.35 TB/s) at the stage-1 recipe (8 x 512 x 1024):
 // it reads 12.6 MB of uint8 and writes 50.3 MB of float32 (25.2 MB of
 // bfloat16): 19 us (11 us).  About 78 operations per pixel, 0.33 GOP, is
-// 5 us at 67 TFLOP/s, so it is bound by bytes.
+// 5 us at 67 TFLOP/s, so it is bound by bytes.  The unshuffled output
+// writes as many bytes again: 34 us (19 us).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +58,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 photometric_kernel(const uint8_t* __restrict__ img, const float* __restrict__ taps,
                    const float* __restrict__ cmat, const float* __restrict__ coff,
-                   T* __restrict__ out, int height, int width) {
+                   T* __restrict__ out, T* __restrict__ unshuffled, int unshuffle,
+                   int height, int width) {
   __shared__ float s_prm[kParams];
   const int b = blockIdx.z, y = blockIdx.y;
   const int x = blockIdx.x * kThreads + threadIdx.x;
@@ -86,6 +95,11 @@ photometric_kernel(const uint8_t* __restrict__ img, const float* __restrict__ ta
     float s = __fadd_rn(__fmul_rn(m[0 * 3 + d], h[0]), __fmul_rn(m[1 * 3 + d], h[1]));
     s = __fadd_rn(__fadd_rn(s, __fmul_rn(m[2 * 3 + d], h[2])), off[d]);
     store(op + d * plane, s);
+    if (unshuffle) {
+      const int r = unshuffle, hr = height / r, wr = width / r;
+      const long long ch = (long long)b * 3 * r * r + d * r * r + (y % r) * r + (x % r);
+      store(unshuffled + (ch * hr + y / r) * wr + x / r, s);
+    }
   }
 }
 
@@ -95,18 +109,22 @@ extern "C" {
 
 // img (B, H, W, 3) uint8; taps (B, 3), cmat (B, 3, 3), coff (B, 3) float32;
 // out (B, 3, H, W) float32 (out_dtype 0) or bfloat16 (1).  H, W >= 2.
+// unshuffle r > 0: also unshuffled (B, 3*r*r, H/r, W/r) of the same type,
+// H and W multiples of r; r = 0: unshuffled is not touched.
 // Launches on `stream`; returns cudaGetLastError() (0 = ok).
 int dsrl_photometric(int out_dtype, const uint8_t* img, const float* taps, const float* cmat,
-                     const float* coff, void* out, int batch, int height, int width,
-                     void* stream) {
+                     const float* coff, void* out, void* unshuffled, int unshuffle, int batch,
+                     int height, int width, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((width + kThreads - 1) / kThreads, height, batch);
   if (out_dtype)
     photometric_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        img, taps, cmat, coff, static_cast<__nv_bfloat16*>(out), height, width);
+        img, taps, cmat, coff, static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(unshuffled), unshuffle, height, width);
   else
-    photometric_kernel<float><<<grid, kThreads, 0, s>>>(img, taps, cmat, coff,
-                                                        static_cast<float*>(out), height, width);
+    photometric_kernel<float><<<grid, kThreads, 0, s>>>(
+        img, taps, cmat, coff, static_cast<float*>(out), static_cast<float*>(unshuffled),
+        unshuffle, height, width);
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,9 @@ kernel K2 (ops/augment_post.py) and the resize to the model input.
   JAX ``_photometric_params`` from a ``torch.Generator``: the same
   distributions, not the same numbers.
 
-ColorJitter stays off, as in the recipe; the pixel-unshuffled ``img_hi``
-of stages 2-3 is not ported yet.
+ColorJitter stays off, as in the recipe.  At stages 2 and 3 K2 also emits
+``img_hi`` pixel-unshuffled by 8 in the same pass (``unshuffle_hi=8``), the
+layout of the SISR loss's target.
 """
 
 import dataclasses
@@ -183,14 +184,16 @@ def photometric_params(generator: torch.Generator, b: int, cfg: AugmentConfig, s
 
 
 def device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg: AugmentConfig,
-                dtype=torch.float32):
+                dtype=torch.float32, unshuffle_hi: int = 0):
     """The photometric tail on given parameters -> ((img_lo, img_hi),
     (seg_hi, seg_lo)), the JAX ``make_device_post_fn`` structure: img_hi is
     K2's planar output and img_lo its align-corners bilinear resize to the
     input size, both as NHWC views in ``dtype``; seg_hi is the warped
     uint8 label and seg_lo its nearest downsample (every other pixel when
-    the sizes are exactly 2x)."""
-    hi = photometric(imgs_w_u8, taps, cmat, coff, dtype)
+    the sizes are exactly 2x).  With ``unshuffle_hi=r`` img_hi is instead
+    K2's pixel-unshuffled output, as the NHWC view (B, OH/r, OW/r, 3*r*r)."""
+    out = photometric(imgs_w_u8, taps, cmat, coff, dtype, unshuffle_hi)
+    hi, hi_out = out if unshuffle_hi else (out, out)
     lo = F.interpolate(hi, size=tuple(cfg.input_hw), mode='bilinear', align_corners=True)
     (oh, ow), (ih, iw) = cfg.output_hw, cfg.input_hw
     if oh == 2 * ih and ow == 2 * iw:
@@ -199,16 +202,18 @@ def device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg: AugmentConfig,
         dev = segs_w_u8.device
         seg_lo = segs_w_u8.index_select(1, _nearest_indices(oh, ih, dev)) \
                           .index_select(2, _nearest_indices(ow, iw, dev))
-    return (lo.permute(0, 2, 3, 1), hi.permute(0, 2, 3, 1)), (segs_w_u8, seg_lo)
+    return (lo.permute(0, 2, 3, 1), hi_out.permute(0, 2, 3, 1)), (segs_w_u8, seg_lo)
 
 
-def make_device_post_fn(cfg: AugmentConfig, dtype=torch.float32):
+def make_device_post_fn(cfg: AugmentConfig, dtype=torch.float32, unshuffle_hi: int = 0):
     """Returns fn(imgs_w_u8 (B, OH, OW, 3), segs_w_u8 (B, OH, OW), generator)
     -> ((img_lo, img_hi), (seg_hi, seg_lo)): :func:`photometric_params`
     drawn from ``generator`` (on the images' device), then
-    :func:`device_post`."""
+    :func:`device_post`.  ``fn.unshuffled_hi_factor`` is ``unshuffle_hi``
+    (the train step reads it, as the JAX package's does)."""
     def post(imgs_w_u8, segs_w_u8, generator):
         taps, cmat, coff = photometric_params(generator, imgs_w_u8.shape[0], cfg, cfg.std)
-        return device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg, dtype)
+        return device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg, dtype, unshuffle_hi)
 
+    post.unshuffled_hi_factor = int(unshuffle_hi)
     return post

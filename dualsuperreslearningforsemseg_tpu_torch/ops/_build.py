@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), 'build', 'kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 # Every kernel source of the port; build_all compiles them side by side.
-KERNELS = ('eval_tail', 'fused_tail', 'augment_post')
+KERNELS = ('eval_tail', 'fused_tail', 'augment_post', 'fa_pairwise')
 
 
 def _nvcc():

@@ -168,3 +168,32 @@ def test_device_post_matches_jax_composition(rng):
     np.testing.assert_allclose(img_lo.numpy(), np.asarray(lo).transpose(0, 2, 3, 1), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(seg_hi.numpy(), seg)
     np.testing.assert_array_equal(seg_lo.numpy(), seg[:, ::2, ::2])
+
+
+def test_unshuffled_output_matches_jax_kernel(rng):
+    """K2's second output (``unshuffle=8``): the plain version's against the
+    Pallas kernel's in interpret mode, on (B, 16, 128, 3): the layouts match
+    (the port's NCHW (B, 192, H/8, W/8) is the JAX (B, H/8, W/8, 192)), the
+    values are bit-exact for identity-taps samples and within atol 1e-6
+    elsewhere, as for the planar output, and the port's unshuffled output is
+    ``F.pixel_unshuffle`` of its planar output bit for bit.  ``device_post``
+    with ``unshuffle_hi=8`` hands it over as img_hi."""
+    img, taps, cmat, coff = _photometric_inputs(rng, 4, 16, 128)
+    planar, un = photometric_plain(*_torch(img, taps, cmat, coff), torch.float32, unshuffle=8)
+    assert tuple(un.shape) == (4, 192, 2, 16)
+    assert torch.equal(un, torch.nn.functional.pixel_unshuffle(planar, 8))
+    hi_j, un_j = photometric_planar(jnp.asarray(img.transpose(0, 3, 1, 2)), jnp.asarray(taps),
+                                    jnp.asarray(cmat), jnp.asarray(coff), out_dtype=jnp.float32,
+                                    interpret=True, unshuffle=8)
+    un_j = np.asarray(un_j).transpose(0, 3, 1, 2)
+    np.testing.assert_array_equal(
+        torch.nn.functional.pixel_unshuffle(torch.from_numpy(np.array(hi_j)), 8).numpy(), un_j)
+    np.testing.assert_array_equal(un.numpy()[0::2], un_j[0::2])
+    np.testing.assert_allclose(un.numpy(), un_j, rtol=0, atol=1e-6)
+
+    cfg = AugmentConfig(input_hw=(8, 64), output_hw=(16, 128), mean=cityscapes.MEAN,
+                        std=cityscapes.STD)
+    seg = rng.integers(0, 19, size=(4, 16, 128)).astype(np.uint8)
+    (_, img_hi), _ = device_post(*_torch(img, seg, taps, cmat, coff), cfg, unshuffle_hi=8)
+    assert tuple(img_hi.shape) == (4, 2, 16, 192)
+    assert torch.equal(img_hi.permute(0, 3, 1, 2), un)

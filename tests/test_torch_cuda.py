@@ -18,6 +18,13 @@ device.  Run on the GPU machine with
 * K2 (photometric tail): bit-exact against the plain version in float32
   (every op is rounded alone in both), identity taps included, bfloat16
   within one ulp, at an odd width too.
+  Its unshuffled second output (``unshuffle=8``) is bit-exact with
+  ``F.pixel_unshuffle`` of the plain planar output in float32, and its
+  planar output is the one-output launch's.
+* K4 (FA all-pairs), forward and backward, at (8, 256) and (3, 100), on
+  rows with exact ties: sums within rel 1e-5, da and db bit-equal to the
+  plain version (integer sign counts times g), two launches bit-identical,
+  and ``fa_loss`` on CUDA maps launches it.
 * The warp (plain PyTorch) on the card equals its CPU run.
 """
 
@@ -30,7 +37,11 @@ from dualsuperreslearningforsemseg_tpu_torch.data import (
     AugmentConfig, photometric_params, sample_affine_matrices_np, warp_pair_batch)
 from dualsuperreslearningforsemseg_tpu_torch.datasets import cityscapes
 from dualsuperreslearningforsemseg_tpu_torch.ops.augment_post import photometric, photometric_plain
+from dualsuperreslearningforsemseg_tpu_torch.losses import fa_loss
 from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail, eval_tail_plain
+from dualsuperreslearningforsemseg_tpu_torch.ops.fa_pairwise import (
+    fa_pairwise_backward, fa_pairwise_backward_plain, fa_pairwise_forward,
+    fa_pairwise_forward_plain)
 from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
     fused_convt2_ce_mean, fused_convt2_ce_sum_plain, fused_tail_backward, fused_tail_forward)
 
@@ -187,6 +198,56 @@ def test_photometric_matches_plain(cuda, shape):
     ref = photometric_plain(img, taps, cmat, coff, torch.bfloat16).float()
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
     assert bool(((blurred - ref).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_photometric_unshuffled_output(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    img = torch.randint(0, 256, (4, 64, 128, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    cfg = AugmentConfig(mean=cityscapes.MEAN, std=cityscapes.STD, blur_p=1.0)
+    taps, cmat, coff = photometric_params(gen, 4, cfg, cityscapes.STD)
+    dt = getattr(torch, dtype)
+    planar, un = photometric(img, taps, cmat, coff, dt, unshuffle=8)
+    assert tuple(un.shape) == (4, 192, 8, 16) and un.dtype == dt
+    assert torch.equal(planar, photometric(img, taps, cmat, coff, dt))
+    ref = F.pixel_unshuffle(photometric_plain(img, taps, cmat, coff, dt), 8)
+    if dtype == 'float32':
+        assert torch.equal(un, ref)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=1e-30))) - 7)
+        assert bool(((un.float() - ref.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize('shape', [(8, 256), (3, 100)])
+def test_fa_pairwise_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    a, b = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    a[:, ::4], b[:, ::4] = torch.round(a[:, ::4] * 4) / 4, torch.round(b[:, ::4] * 4) / 4
+    g = torch.rand(shape[0], generator=gen, device=cuda) + 0.5
+    before = (fa_pairwise_forward.launches, fa_pairwise_backward.launches)
+    sums, again = fa_pairwise_forward(a, b), fa_pairwise_forward(a, b)
+    (da, db), (da2, db2) = fa_pairwise_backward(a, b, g), fa_pairwise_backward(a, b, g)
+    torch.cuda.synchronize()
+    assert (fa_pairwise_forward.launches, fa_pairwise_backward.launches) == (before[0] + 2,
+                                                                           before[1] + 2)
+    assert torch.equal(sums, again) and torch.equal(da, da2) and torch.equal(db, db2)
+    np.testing.assert_allclose(sums.cpu().numpy(), fa_pairwise_forward_plain(a, b).cpu().numpy(),
+                               rtol=1e-5)
+    da_p, db_p = fa_pairwise_backward_plain(a, b, g)
+    assert torch.equal(da, da_p) and torch.equal(db, db_p)
+
+
+def test_fa_loss_on_the_card_launches_k4(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    m1, m2 = (torch.randn((2, 1, 64, 128), generator=gen, device=cuda).relu().requires_grad_()
+              for _ in range(2))
+    before = (fa_pairwise_forward.launches, fa_pairwise_backward.launches)
+    value = fa_loss(m1, m2)
+    value.backward()
+    assert (fa_pairwise_forward.launches, fa_pairwise_backward.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    dense = fa_loss(m1.detach(), m2.detach(), impl='dense')
+    np.testing.assert_allclose(float(value.detach()), float(dense), rtol=1e-5)
 
 
 def test_warp_on_the_card_matches_its_cpu_run(cuda):

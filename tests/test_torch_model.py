@@ -58,7 +58,7 @@ def test_forward_matches_jax(models):
     jax_model, variables, port, x = models
     ref = np.asarray(jax_model.apply(variables, jnp.asarray(x), False)[0])   # NHWC
     with torch.no_grad():
-        out = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+        out = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())[0]
     assert tuple(out.shape) == (2, 19, 2 * HW[0], 2 * HW[1])
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)
 
@@ -72,7 +72,7 @@ def test_pre_tail_matches_jax(models):
     grouped = cols.reshape(b, h, w, 4, TAIL_COL_BLOCK)[..., :19]
     ref = np.asarray(ungroup_2x2(grouped))                               # (B, H, W, C)
     with torch.no_grad():
-        out = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(), pre_tail=True)
+        out = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(), pre_tail=True)[0]
     assert tuple(out.shape) == (2, 19) + HW
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)
 
@@ -93,3 +93,55 @@ def test_stage3_weights_load_non_strict(tmp_path):
     np.testing.assert_array_equal(got, flat['SSSR_decoder.upsample16_pred.6.weight'])
     with pytest.raises(KeyError):
         load_state_dict(DSRL(num_classes=19, backbone_layers=LAYERS), flat, strict=True)
+
+
+@pytest.mark.parametrize('stage', [2, 3])
+def test_stage23_model_matches_jax(stage):
+    """Stage-2/3 JAX variables load with strict=True; in eval mode the port's
+    pre-tail outputs equal the JAX grouped pre-tail outputs: the activation,
+    the pre-shuffle SISR output (NHWC there), and at stage 3 the two
+    transformer outputs (the FA feed), within rtol/atol 1e-4."""
+    rng = np.random.default_rng(20 + stage)
+    jax_model, variables = _jax_variables(stage, rng, seed=stage)
+    port = DSRL(num_classes=19, stage=stage, backbone_layers=LAYERS)
+    load_state_dict(port, port_state_dict_from_jax(variables), strict=True)
+    x = rng.standard_normal((2, *HW, 3)).astype(np.float32)
+    cols, sisr, sssr_t, sisr_t = jax_model.apply(variables, jnp.asarray(x), False, False, True, True)
+    b, h, w, _ = cols.shape
+    pre_tail = np.asarray(ungroup_2x2(cols.reshape(b, h, w, 4, TAIL_COL_BLOCK)[..., :19]))
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(), pre_tail=True)
+    refs = [pre_tail, np.asarray(sisr)] + ([np.asarray(sssr_t), np.asarray(sisr_t)] if stage == 3
+                                           else [None, None])
+    assert tuple(out[1].shape) == (2, 192, HW[0] // 4, HW[1] // 4)
+    for got, ref in zip(out, refs):
+        if ref is None:
+            assert got is None
+            continue
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)
+    if stage == 3:
+        assert tuple(out[2].shape) == tuple(out[3].shape) == (2, 1, HW[0] // 4, HW[1] // 4)
+
+
+def test_fa_feed_equals_the_full_resolution_path():
+    """The FA corner is the stride-8 sample of the final ConvT's output, and
+    the pre-tail path's transformer outputs equal the plain path's stride-8
+    transformers on the full-resolution logits and SISR image (eval mode,
+    within 1e-5)."""
+    rng = np.random.default_rng(31)
+    _, variables = _jax_variables(3, rng, seed=5)
+    port = DSRL(num_classes=19, stage=3, backbone_layers=LAYERS).eval()
+    load_state_dict(port, port_state_dict_from_jax(variables), strict=True)
+    x = torch.from_numpy(rng.standard_normal((2, 3, *HW)).astype(np.float32))
+    with torch.no_grad():
+        y, sisr_pre, sssr_t, sisr_t = port(x, pre_tail=True)
+        logits, sisr, sssr_t_full, sisr_t_full = port(x)
+        tail = port.SSSR_decoder.upsample16_pred[6]
+        strided = torch.nn.functional.conv_transpose2d(y, tail.weight, tail.bias, stride=2)
+        np.testing.assert_allclose(port.SSSR_decoder.fa_corner(y).numpy(),
+                                   strided[..., ::8, ::8].numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(sisr, torch.nn.functional.pixel_shuffle(sisr_pre, 8))
+    np.testing.assert_allclose(logits.numpy(), strided.numpy(), rtol=1e-5, atol=1e-5)
+    for got, ref in ((sssr_t, sssr_t_full), (sisr_t, sisr_t_full)):
+        assert got.shape == ref.shape == (2, 1, HW[0] // 4, HW[1] // 4)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)

@@ -4,10 +4,14 @@
   Flax or the JAX package (an AST scan of every import).
 * The entry points run on ``cuda`` unless asked for the CPU: without a card
   ``benchmark`` and ``train`` raise instead of falling back.
+* Every kernel wrapper module (K3, K1, K2, K4) has its plain version beside
+  the kernel, one ``launches`` counter per kernel, raised in one place only,
+  and no ``try`` anywhere (so nothing falls back to the plain version).
 """
 
 import ast
 import glob
+import importlib
 import os
 
 import pytest
@@ -56,3 +60,46 @@ def test_train_without_device_raises_on_a_cardless_machine(tmp_path, monkeypatch
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match='--device cpu'):
         main(['train', '--stage', '1', '--epochs', '1', '--dataset', 'cityscapes'])
+
+
+WRAPPERS = {
+    'eval_tail': (['eval_tail'], ['eval_tail_plain']),
+    'fused_tail': (['fused_tail_forward', 'fused_tail_backward'],
+                   ['fused_convt2_ce_sum_plain', 'fused_convt2_ce_mean_plain']),
+    'augment_post': (['photometric'], ['photometric_plain']),
+    'fa_pairwise': (['fa_pairwise_forward', 'fa_pairwise_backward'],
+                    ['fa_pairwise_forward_plain', 'fa_pairwise_backward_plain',
+                     'fa_allpairs_abs_sum_rows_plain', 'fa_allpairs_abs_mean_plain']),
+}
+
+
+@pytest.mark.parametrize('module', sorted(WRAPPERS))
+def test_kernel_wrappers_keep_the_port_rules(module):
+    launchers, plains = WRAPPERS[module]
+    mod = importlib.import_module('dualsuperreslearningforsemseg_tpu_torch.ops.' + module)
+    for name in plains:
+        assert callable(getattr(mod, name)), name
+    for name in launchers:
+        assert isinstance(getattr(mod, name).launches, int), name
+    with open(mod.__file__) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
+    raised = {}
+    for fn in (n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)):
+        for node in ast.walk(fn):
+            if isinstance(node, ast.AugAssign) and getattr(node.target, 'attr', None) == 'launches':
+                raised.setdefault(node.target.value.id, []).append(fn.name)
+    assert raised == {name: [name] for name in launchers}
+
+
+def test_fa_pairwise_sends_cpu_tensors_to_the_plain_version():
+    from dualsuperreslearningforsemseg_tpu_torch.ops import fa_pairwise
+    a = torch.arange(12, dtype=torch.float32).reshape(3, 4).requires_grad_()
+    b = torch.ones(3, 4)
+    before = fa_pairwise.fa_pairwise_forward.launches, fa_pairwise.fa_pairwise_backward.launches
+    out = fa_pairwise.fa_allpairs_abs_sum_rows(a, b)
+    out.sum().backward()
+    assert (fa_pairwise.fa_pairwise_forward.launches,
+            fa_pairwise.fa_pairwise_backward.launches) == before
+    assert torch.equal(out.detach(), fa_pairwise.fa_pairwise_forward_plain(a.detach(), b))
+    assert torch.equal(a.grad, torch.sign(a.detach() - 1.0) * 4)

@@ -1,13 +1,18 @@
 """The port's ``train`` command on the CPU: one epoch of stage 1 on a
 4-frame synthetic train split (batch 2, so 2 steps) with validation, as
-``python -m dualsuperreslearningforsemseg_tpu_torch train`` runs it.
+``python -m dualsuperreslearningforsemseg_tpu_torch train`` runs it, and the
+stage cascade: ``--stage 2`` and then ``--stage 3`` in the stage-1 run's
+experiment, each printing the JAX engine's INFO line as it warm-starts from
+the stage before and writing a ``final.weights`` that the JAX package's
+``DSRL(stage=k)`` loads with ``strict=True``; without the earlier stage's
+weights the JAX CAUTION line is printed and the backbone init is kept.
 
 It writes ``<experiment>/weights/stage1/final.weights``, which the JAX
 package loads (``load_checkpoint_or_weights`` + ``load_state_dict(strict=
 True)``) with the same key set and shapes as its own stage-1 model; the
-losses it returns are finite.  A stage-2 or stage-3 request, and the
-``train`` flags the port does not have yet, exit with the "not ported yet"
-error naming the ROADMAP queue, before any work.
+losses it returns are finite.  The ``train`` flags the port does not have
+yet exit with the "not ported yet" error naming the ROADMAP queue, before
+any work, at every stage.
 """
 
 import math
@@ -59,7 +64,7 @@ def test_train_writes_weights_the_jax_package_loads(workdir):
         mine['SSSR_decoder.upsample16_pred.6.bias'])
 
 
-@pytest.mark.parametrize('extra', [['--stage', '2'], ['--stage', '3'],
+@pytest.mark.parametrize('extra', [['--stage', '2', '--profile'], ['--stage', '3', '--debug-nans'],
                                    ['--stage', '1', '--early-stopping'],
                                    ['--stage', '1', '--dry-run']])
 def test_unported_requests_exit_with_an_error(workdir, capsys, extra):
@@ -69,3 +74,39 @@ def test_unported_requests_exit_with_an_error(workdir, capsys, extra):
     out = capsys.readouterr().out
     assert 'not ported yet' in out and 'ROADMAP.md queue' in out
     assert not os.path.exists('experiments')
+
+
+def _load_into_jax(path, stage):
+    variables = init_model_host(JaxDSRL(stage=stage, num_classes=19), jax_settings.MODEL_INPUT_SIZE)
+    mine = load_checkpoint_or_weights(path)['model_state_dict']
+    assert set(mine) == set(state_dict(variables))
+    _, missing, unexpected = load_state_dict(variables, mine, strict=True)
+    assert not missing and not unexpected
+
+
+def test_stage_cascade_warm_starts_from_the_stage_before(workdir, capsys):
+    main(ARGS + ['--stage', '1', '--experiment-id', 'cascade'])
+    capsys.readouterr()
+    for stage in (2, 3):
+        res = main(ARGS + ['--stage', str(stage), '--experiment-id', 'cascade'])
+        out = capsys.readouterr().out
+        previous = os.path.join('experiments', 'cascade', 'weights', 'stage{}'.format(stage - 1),
+                                'final.weights')
+        assert res['warm_start'] == previous
+        assert "'{}' weights file from previous stage was found".format(previous) in out
+        assert 'Avg. MSE: ' in out and ('Avg. FA: ' in out) == (stage == 3)
+        train, val = res['train_losses'][0], res['val']
+        assert all(math.isfinite(v) for v in list(train.values()) + [val[k] for k in train])
+        assert train['MSE'] > 0 and val['MSE'] > 0
+        assert (train['FA'] > 0 and val['FA'] > 0) == (stage == 3)
+        np.testing.assert_allclose(train['Total'], train['CE'] + train['MSE'] + train['FA'], rtol=1e-6)
+        _load_into_jax(res['final_weights'], stage)
+
+
+def test_stage2_without_stage1_weights_prints_the_caution(workdir, capsys):
+    res = main(ARGS + ['--stage', '2', '--experiment-id', 'fresh'])
+    out = capsys.readouterr().out
+    assert res['warm_start'] is None
+    assert "weights file from previous stage was not found; initializing with pretrained " \
+           "ResNet101 + Kaiming init." in out
+    assert os.path.isfile(res['final_weights'])

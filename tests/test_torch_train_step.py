@@ -83,7 +83,7 @@ def _run(rng, monkeypatch, freeze_bn):
 
     port = _no_dropout(DSRL(num_classes=19, backbone_layers=LAYERS))
     load_state_dict(port, port_state_dict_from_jax(variables), strict=True)
-    step = make_train_step(port, make_sgd(port, LR, MOMENTUM, WD), 1, 255, freeze_bn)
+    step = make_train_step(port, make_sgd(port, LR, MOMENTUM, WD), 1, 0.0, 0.0, 255, freeze_bn)
 
     jax_step = jax_make_train_step(jax_model, 1, 0.0, 0.0, MOMENTUM, WD, 255, freeze_bn,
                                    fused_tail=True)
