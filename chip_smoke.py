@@ -8,66 +8,64 @@ It imports the port (``dualsuperreslearningforsemseg_tpu_torch``) and
 nothing of JAX.  Phases, each fatal on failure:
 
 1. build: compiles every CUDA kernel of the port from ``csrc/`` (one nvcc
-   per source, all started together) into ``build/kernels/``;
-2. kernel: the eval-tail kernel K3 against its plain PyTorch version on the
-   card at the benchmark's shape, x (16, 19, 256, 512) float32 with TF32 off:
-   (a) inputs whose logits are exact in float32 (every product and sum is a
-   multiple of 2^-12), so the class map and every count must be equal;
-   (b) Gaussian inputs, where the class map may differ only at pixels whose
-   top-two plain logits lie within 1e-5 and the counts only by those pixels.
-   CE sums agree within rel 1e-5.  Both versions are timed with CUDA events;
-3. main path: writes a synthetic Cityscapes val split (36 frames at
-   1024x2048, batches 16+16+4) and seeded stage-1 ``.weights`` (the port's
-   init), then runs ``benchmark`` at full depth (3,4,23,3) and 256x512 through
-   the CLI's ``main`` in this process, with the kernel's launch count set to
-   0 just before and read just after (it must equal the batch count); checks
-   one batch's eval step against the plain full-logits composition; times a
-   warm eval step at batch 16 and its parts with CUDA events; runs
-   ``test --image-file`` on one frame;
-4. K1: the train tail's forward and backward kernels against the plain
-   autograd composition (ConvT + the port's CE sum) at x (8, 19, 256, 512),
-   float32 and bfloat16 x, with ignored and out-of-range labels.  Gradients
-   are those of the CE sum (cotangent 1, so dX is O(1)): the value within
-   rel 1e-5 and an equal count; per element |d| <= rtol * (|plain| +
-   max|plain|) with rtol 1e-5 for dX and 1e-4 for dW and db (sums over 4.2 M
-   pixels in another order); a bfloat16 dX within one bfloat16 ulp of the
-   plain value plus 1e-5 * max|plain|.  Two backward launches must give
-   bit-identical gradients.  Forward, backward and the plain forward +
-   backward are timed with CUDA events;
-5. K2: the photometric kernel against its plain version at (8, 512, 1024, 3)
+   per source, all started together) into ``build/kernels/``, prints the
+   ``-Xptxas -v`` reports and, where ``cuobjdump`` is present, the count of
+   tensor-core instructions (``HMMA``) and asynchronous copies (``LDGSTS``)
+   in each library;
+2. K3: the eval-tail kernel against its plain PyTorch version on the card
+   at the benchmark's shape, x (16, 19, 256, 512), float32 with TF32 off and
+   bfloat16: (a) inputs whose logits are exact in float32 (every product and
+   sum is a multiple of 2^-12, and every value is exact in bfloat16 too), so
+   the class map and every count must be equal; (b) Gaussian inputs, where
+   the class map may differ only at pixels whose top-two plain logits lie
+   within 1e-5 and the counts only by those pixels.  CE sums agree within
+   rel 1e-5.  Both versions are timed with CUDA events, in both dtypes;
+3. K1: the train tail's forward and backward kernels against the plain
+   version (ConvT + the port's CE sum under autograd for float32 x; for
+   bfloat16 x its explicit backward with the TPU kernel's rounding) at x
+   (8, 19, 256, 512), float32 and bfloat16 x, with ignored and out-of-range
+   labels.  Gradients are those of the CE sum (cotangent 1, so dX is O(1)):
+   the value within rel 1e-5 and an equal count; per element |d| <= rtol *
+   (|plain| + max|plain|) with rtol 1e-5 for dX and 1e-4 for dW and db (sums
+   over 4.2 M pixels in another order); a bfloat16 dX within one bfloat16
+   ulp of the plain value plus 1e-5 * max|plain|.  Two backward launches
+   must give bit-identical gradients.  Forward, backward and the plain
+   forward + backward are timed with CUDA events, the kernels in both dtypes;
+4. K2: the photometric kernel against its plain version at (8, 512, 1024, 3)
    uint8, per-sample taps and matrices, half of them identity taps, whose
    float32 output must be bit-exact; float32 within atol 1e-6, bfloat16
    within one ulp; then its unshuffled second output (``unshuffle=8``, the
    stages 2-3 SISR target) bit-exact in float32 with ``F.pixel_unshuffle``
    of the plain planar output, bfloat16 within one ulp; timed;
-6. K4: the FA all-pairs kernels, forward and backward, against their plain
+5. K4: the FA all-pairs kernels, forward and backward, against their plain
    versions at (8, 256) (the stage-3 recipe), (3, 100) (ragged) and
    (304, 1024), on rows with exact ties: the sums within rel 1e-5, da and
    db bit-equal (integer sign counts times g), two launches bit-identical,
    and the autograd mean's gradients equal to the plain autograd path's;
    kernel, plain and ``torch.cdist`` timed;
-7. main path: writes a synthetic Cityscapes val split (36 frames at
+6. main path: writes a synthetic Cityscapes val split (36 frames at
    1024x2048, batches 16+16+4) and seeded stage-1 ``.weights`` (the port's
    init), then runs ``benchmark`` at full depth (3,4,23,3) and 256x512 through
    the CLI's ``main`` in this process, with the kernel's launch count set to
    0 just before and read just after (it must equal the batch count); checks
    one batch's eval step against the plain full-logits composition; times a
-   warm eval step at batch 16 and its parts with CUDA events; runs
+   warm eval step at batch 16 and its parts with CUDA events, and the
+   bfloat16 eval step (``--mixed-precision`` validation) beside it; runs
    ``test --image-file`` on one frame;
-8. train: writes a synthetic train split of 24 frames at 1024x2048 beside
+7. train: writes a synthetic train split of 24 frames at 1024x2048 beside
    the val split and runs ``train --stage 1 --epochs 1 --batch-size 8
    --val-interval 1 --experiment-id smoke`` at full depth through the CLI's
    ``main``, with every kernel's launch count set to 0 just before and read
    just after: K1 forward, K1 backward and K2 once per step (3), K3 once per
    val batch (5), K4 never; ``final.weights`` must load with strict=True and
    every loss be finite; then ``benchmark`` of the trained weights;
-9. stage-1 train step: one step with K1 against the same step with the
+8. stage-1 train step: one step with K1 against the same step with the
    plain tail on copies of one model (dropout off, BatchNorm frozen): losses
    within rel 1e-5, the updates SGD applied (lr * its momentum buffer after
    one step) within 1e-4 of the largest update; then a warm float32 step at
    batch 8 and its parts timed with CUDA events, and one bfloat16
    (``--mixed-precision O1``) step;
-10. cascade: ``train --stage 2`` and then ``--stage 3`` in the same
+9. cascade: ``train --stage 2`` and then ``--stage 3`` in the same
    experiment, at full depth, counts reset before each run and read after:
    K1 forward and backward and K2 (unshuffling) 3 each, K3 5, and at stage 3
    K4 forward 3 + 5 (train steps + val batches) and K4 backward 3; each
@@ -75,11 +73,18 @@ nothing of JAX.  Phases, each fatal on failure:
    finite (MSE > 0, and FA > 0 at stage 3), and each ``final.weights`` load
    into ``DSRL(stage=k)`` with strict=True; then ``benchmark`` of the
    stage-3 weights;
-11. stage-3 train step: one step with K4 against the same step with the
-   dense FA (as phase 9, all four losses within rel 1e-5), the warm float32
+10. stage-3 train step: one step with K4 against the same step with the
+   dense FA (as phase 8, all four losses within rel 1e-5), the warm float32
    step's parts (warp, K2 + resize, forward, K1, MSE, FA with its power
    iteration and K4 forward, backward, SGD), and one bfloat16 step in which
    K4 still receives float32.
+
+Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
+TB/s and its operations over the card's peak for their type: the 19x19
+products of K1 and K3 at the tensor cores' rate, three TF32 passes at 495
+TFLOP/s for float32 x (3xTF32 keeps float32 accuracy) or one bfloat16 pass
+at 989 TFLOP/s, their elementwise work at 67 TFLOP/s FP32; K2 and K4 all at
+67 TFLOP/s FP32.
 
 The line before the last is the kernels' JSON record, with every kernel's
 launches from the stage-3 run (phase 10); the last line is
@@ -97,6 +102,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 PEAK_FP32_OPS_PER_S = 67e12   # H100 SXM FP32, CUDA cores
+PEAK_TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 NUM_CLASSES = 19
 
 
@@ -159,12 +166,12 @@ def compare_tail(x, weight, bias, labels, exact, tie_eps=1e-5):
     """Kernel vs plain version on the same card inputs; returns a dict of
     the differences, failing the run where they exceed the stated rules."""
     import torch
-    import torch.nn.functional as F
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail, eval_tail_plain
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import tail_logits_plain
     pred_k, ce_k, areas_k, acc_k = eval_tail(x, weight, bias, labels)
     torch.cuda.synchronize()
     pred_p, ce_p, areas_p, acc_p = eval_tail_plain(x, weight, bias, labels)
-    top2 = F.conv_transpose2d(x, weight, bias, stride=2).topk(2, dim=1).values
+    top2 = tail_logits_plain(x, weight, bias).topk(2, dim=1).values
     near_tie = (top2[:, 0] - top2[:, 1]) <= tie_eps
     mismatch = pred_k != pred_p
     n_mismatch = int(mismatch.sum())
@@ -173,7 +180,7 @@ def compare_tail(x, weight, bias, labels, exact, tie_eps=1e-5):
     count_diff = [int(acc_k[0] - acc_p[0]), int(acc_k[1] - acc_p[1])]
     ce_k, ce_p = float(ce_k), float(ce_p)
     rel = abs(ce_k - ce_p) / max(abs(ce_p), 1e-30)
-    out = {'exact_inputs': exact, 'pred_mismatch': n_mismatch,
+    out = {'dtype': str(x.dtype), 'exact_inputs': exact, 'pred_mismatch': n_mismatch,
            'pred_mismatch_beyond_tie': n_far, 'near_tie_pixels': int(near_tie.sum()),
            'max_area_diff': area_diff, 'correct_diff': count_diff[0],
            'valid_diff': count_diff[1], 'ce_sum_kernel': ce_k, 'ce_sum_plain': ce_p,
@@ -189,48 +196,70 @@ def compare_tail(x, weight, bias, labels, exact, tie_eps=1e-5):
     return out
 
 
+def tail_work(out_pixels, products, elementwise):
+    """(tensor-core flops, FP32 operations) of a tail kernel over
+    ``out_pixels`` output pixels: ``products`` 19x19 products and
+    ``elementwise`` operations per class of each output pixel."""
+    return (out_pixels * products * 2 * NUM_CLASSES * NUM_CLASSES,
+            out_pixels * elementwise * NUM_CLASSES)
+
+
+def bound(nbytes, ops, mma_flops=0, dtype=None):
+    """(bound ms, 'bytes' or 'operations') on this card's published peaks:
+    ``nbytes`` over the memory rate, ``ops`` FP32 operations on the CUDA
+    cores, and ``mma_flops`` of products on the tensor cores (three TF32
+    passes for float32, one bfloat16 pass), the largest of the three."""
+    import torch
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    if mma_flops:
+        t_ops = max(t_ops, (mma_flops / PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16
+                            else 3 * mma_flops / PEAK_TF32_OPS_PER_S) * 1e3)
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def record(name, source, replaces, max_abs_err, ms, plain_ms, nbytes, ops, mma_flops=0, dtype=None):
+    bound_ms, bound_by = bound(nbytes, ops, mma_flops, dtype)
+    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': None, 'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+
+
 def kernel_phase():
     import torch
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail, eval_tail_plain
     gen = torch.Generator(device='cuda').manual_seed(1234)
     b, h, w = 16, 256, 512
-    compare_tail(*tail_case(gen, 1, 8, 40, exact=True), exact=True)   # ragged last block
+    compare_tail(*tail_case(gen, 1, 8, 40, exact=True), exact=True)   # ragged last tile
     compare_tail(*tail_case(gen, b, h, w, exact=True), exact=True)
     x, weight, bias, labels = tail_case(gen, b, h, w, exact=False)
     gaussian = compare_tail(x, weight, bias, labels, exact=False)
+    # bfloat16 x: the exact inputs are exact in bfloat16 too.
+    xe, we, be, le = tail_case(gen, b, h, w, exact=True)
+    compare_tail(xe.to(torch.bfloat16), we, be, le, exact=True)
+    xb = x.to(torch.bfloat16)
+    compare_tail(xb, weight, bias, labels, exact=False)
+    del xe, we, be, le
 
-    ms = cuda_ms(lambda: eval_tail(x, weight, bias, labels), iters=50)
-    plain_ms = cuda_ms(lambda: eval_tail_plain(x, weight, bias, labels), iters=5, warmup=1)
     out_pixels = labels.numel()
-    nbytes = (x.numel() * 4 + labels.numel() + out_pixels
-              + weight.numel() * 4 + bias.numel() * 4 + (3 * NUM_CLASSES + 2) * 8)
-    ops = out_pixels * (2 * NUM_CLASSES * NUM_CLASSES + 6 * NUM_CLASSES)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3
-    record = {'name': 'eval_tail', 'route': 'cuda',
-              'source': 'dualsuperreslearningforsemseg_tpu_torch/csrc/eval_tail.cu',
-              'replaces': 'dualsuperreslearningforsemseg_tpu/ops/pallas/eval_tail.py:132',
-              'launches': None, 'max_abs_err': gaussian['ce_abs_err'],
-              'ms': ms, 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
-              'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-              'library_ms': None}
-    print("eval_tail at x {}: kernel {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms "
-          "({} bytes -> {:.4f} ms, {} ops -> {:.4f} ms)".format(
-              tuple(x.shape), ms, plain_ms, record['bound_ms'], nbytes, t_bytes, ops, t_ops),
-          flush=True)
-    return record
-
-
-def bound(nbytes, ops):
-    """(bound ms, 'bytes' or 'operations') on this card's published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
-
-
-def record(name, source, replaces, max_abs_err, ms, plain_ms, nbytes, ops):
-    bound_ms, bound_by = bound(nbytes, ops)
-    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-            'launches': None, 'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+    rec, times = None, {}
+    for xt in (x, xb):
+        ms = cuda_ms(lambda: eval_tail(xt, weight, bias, labels), iters=50)
+        plain_ms = cuda_ms(lambda: eval_tail_plain(xt, weight, bias, labels), iters=5, warmup=1)
+        nbytes = (xt.numel() * xt.element_size() + labels.numel() + out_pixels
+                  + weight.numel() * 4 + bias.numel() * 4 + (3 * NUM_CLASSES + 2) * 8)
+        mma_flops, ops = tail_work(out_pixels, 1, 6)
+        r = record('eval_tail', 'dualsuperreslearningforsemseg_tpu_torch/csrc/eval_tail.cu',
+                   'dualsuperreslearningforsemseg_tpu/ops/pallas/eval_tail.py:132',
+                   gaussian['ce_abs_err'], ms, plain_ms, nbytes, ops, mma_flops, xt.dtype)
+        times[str(xt.dtype)] = r
+        print("eval_tail at x {} {}: kernel {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({}; {} bytes, "
+              "{:.3g} tensor-core flops, {:.3g} FP32 ops), {:.1f} % of the bound".format(
+                  tuple(xt.shape), xt.dtype, ms, plain_ms, r['bound_ms'], r['bound_by'], nbytes,
+                  mma_flops, ops, 100 * r['bound_ms'] / ms), flush=True)
+        if rec is None:
+            rec = r
+    return rec
 
 
 def bf16_ulp(t):
@@ -240,16 +269,26 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def grad_check(name, got, ref, rtol, bf16=False):
+def grad_check(name, got, ref, rtol, bf16=False, flip=None):
     """|got - ref| <= rtol * (|ref| + max|ref|) elementwise (+ one bf16 ulp
-    of ref when bf16); returns the max abs and normwise errors."""
+    of ref when bf16); returns the max abs and normwise errors.  ``flip``
+    (elementwise) lets at most 1e-4 of the elements exceed that by up to
+    ``flip``: where kernel and plain version round a dlogit to bfloat16 the
+    other way (their float32 logits differ in summation order), the dX
+    entries it feeds move by one bfloat16 ulp of it times W."""
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     allowed = rtol * (ref.abs() + ref.abs().max())
     if bf16:
         allowed = allowed + bf16_ulp(ref)
+    nan = int(diff.isnan().sum())
     out = {'max_abs': float(diff.max()), 'normwise': float(diff.max() / ref.abs().max().clamp(min=1e-30)),
-           'over': int((diff > allowed).sum()) + int(diff.isnan().sum())}
+           'over': int((diff > allowed).sum()) + nan}
+    if flip is not None:
+        out['flipped'] = out['over'] - nan
+        out['over'] = int((diff > allowed + flip).sum()) + nan
+        if out['flipped'] > 1e-4 * diff.numel():
+            out['over'] += out['flipped']
     if out['over']:
         fail("K1 {} differs from the plain version: {}".format(name, out))
     return out
@@ -286,7 +325,10 @@ def k1_compare(x, weight, bias, labels):
         fail("K1 forward differs from the plain version: {}".format(out))
     if not identical:
         fail("K1 backward is not bit-identical across two launches: {}".format(out))
-    out['dX'] = grad_check('dX', dx_k, xr.grad, 1e-5, bf16=bf16)
+    # bfloat16: a dlogit (|d| <= 1 for the CE sum) rounded the other way
+    # moves dX by at most 2^-8 max|W|, and its rounding by one more ulp.
+    flip = 2.0 ** -8 * float(weight.abs().max()) + bf16_ulp(xr.grad) if bf16 else None
+    out['dX'] = grad_check('dX', dx_k, xr.grad, 1e-5, bf16=bf16, flip=flip)
     out['dW'] = grad_check('dW', dw_k, wr.grad, 1e-4)
     out['db'] = grad_check('db', db_k, br.grad, 1e-4)
     # The path's own entry: the mean loss through the autograd Function.
@@ -308,41 +350,51 @@ def k1_phase():
         fused_tail_forward, fused_tail_backward, fused_convt2_ce_sum_plain)
     gen = torch.Generator(device='cuda').manual_seed(4321)
     for dtype in (torch.float32, torch.bfloat16):
-        k1_compare(*k1_case(gen, 1, 8, 40, dtype))        # ragged last tile
-    x, weight, bias, labels = k1_case(gen, 8, 256, 512, torch.float32)
-    f32 = k1_compare(x, weight, bias, labels)
-    k1_compare(*k1_case(gen, 8, 256, 512, torch.bfloat16))
+        k1_compare(*k1_case(gen, 1, 8, 40, dtype))        # ragged last tile, rows crossed
+        k1_compare(*k1_case(gen, 3, 97, 201, dtype))      # ragged, odd width, more tiles than blocks
+    cases = {torch.float32: k1_case(gen, 8, 256, 512, torch.float32)}
+    f32 = k1_compare(*cases[torch.float32])
+    cases[torch.bfloat16] = k1_case(gen, 8, 256, 512, torch.bfloat16)
+    k1_compare(*cases[torch.bfloat16])
 
     one = torch.ones((), device='cuda')
-    fwd_ms = cuda_ms(lambda: fused_tail_forward(x, weight, bias, labels), iters=20)
-    bwd_ms = cuda_ms(lambda: fused_tail_backward(x, weight, bias, labels, one), iters=20)
-
-    def plain_fwd():
-        with torch.no_grad():
-            fused_convt2_ce_sum_plain(x, weight, bias, labels)
-
-    def plain_fwd_bwd():
-        xr, wr, br = (t.detach().requires_grad_() for t in (x, weight, bias))
-        fused_convt2_ce_sum_plain(xr, wr, br, labels)[0].backward()
-
-    plain_fwd_ms = cuda_ms(plain_fwd, iters=5, warmup=1)
-    plain_fwd_bwd_ms = cuda_ms(plain_fwd_bwd, iters=5, warmup=1)
-    c, out_pixels, xb = NUM_CLASSES, labels.numel(), x.numel() * x.element_size()
-    params = (weight.numel() + bias.numel()) * 4
+    c = NUM_CLASSES
     src = 'dualsuperreslearningforsemseg_tpu_torch/csrc/fused_tail.cu'
-    fwd = record('fused_tail_forward', src,
-                 'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:218',
-                 abs(f32['ce_sum_kernel'] - f32['ce_sum_plain']), fwd_ms, plain_fwd_ms,
-                 xb + labels.numel() + params + 16, out_pixels * (2 * c * c + 6 * c))
-    bwd = record('fused_tail_backward', src,
-                 'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:251',
-                 f32['dX']['max_abs'], bwd_ms, plain_fwd_bwd_ms,
-                 2 * xb + labels.numel() + 2 * params + 4, out_pixels * (6 * c * c + 9 * c))
-    for r, what in ((fwd, 'plain forward'), (bwd, 'plain forward+backward')):
-        print("{} at x {} float32: kernel {:.4f} ms, {} {:.3f} ms, bound {:.4f} ms ({})".format(
-            r['name'], tuple(x.shape), r['ms'], what, r['plain_ms'], r['bound_ms'], r['bound_by']),
-            flush=True)
-    return [fwd, bwd]
+    records = []
+    for dtype, (x, weight, bias, labels) in cases.items():
+        fwd_ms = cuda_ms(lambda: fused_tail_forward(x, weight, bias, labels), iters=20)
+        bwd_ms = cuda_ms(lambda: fused_tail_backward(x, weight, bias, labels, one), iters=20)
+
+        def plain_fwd():
+            with torch.no_grad():
+                fused_convt2_ce_sum_plain(x, weight, bias, labels)
+
+        def plain_fwd_bwd():
+            xr, wr, br = (t.detach().requires_grad_() for t in (x, weight, bias))
+            fused_convt2_ce_sum_plain(xr, wr, br, labels)[0].backward()
+
+        plain_fwd_ms = cuda_ms(plain_fwd, iters=5, warmup=1)
+        plain_fwd_bwd_ms = cuda_ms(plain_fwd_bwd, iters=5, warmup=1)
+        out_pixels, xb = labels.numel(), x.numel() * x.element_size()
+        params = (weight.numel() + bias.numel()) * 4
+        fwd = record('fused_tail_forward', src,
+                     'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:218',
+                     abs(f32['ce_sum_kernel'] - f32['ce_sum_plain']), fwd_ms, plain_fwd_ms,
+                     xb + labels.numel() + params + 16, *tail_work(out_pixels, 1, 6)[::-1],
+                     dtype=dtype)
+        bwd = record('fused_tail_backward', src,
+                     'dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py:251',
+                     f32['dX']['max_abs'], bwd_ms, plain_fwd_bwd_ms,
+                     2 * xb + labels.numel() + 2 * params + 4, *tail_work(out_pixels, 3, 9)[::-1],
+                     dtype=dtype)
+        for r, what in ((fwd, 'plain forward'), (bwd, 'plain forward+backward')):
+            print("{} at x {} {}: kernel {:.4f} ms, {} {:.3f} ms, bound {:.4f} ms ({}), {:.1f} % of "
+                  "the bound".format(r['name'], tuple(x.shape), dtype, r['ms'], what, r['plain_ms'],
+                                     r['bound_ms'], r['bound_by'], 100 * r['bound_ms'] / r['ms']),
+                  flush=True)
+        if not records:
+            records = [fwd, bwd]
+    return records
 
 
 def k2_params(gen, b):
@@ -550,11 +602,21 @@ def check_eval_step(model, loader_batch, transform, eval_step, tie_eps=1e-4):
         fail("eval step disagrees with the plain composition: {}".format(out))
 
 
+def bf16_step_activation(model, x):
+    """The pre-tail activation as the bfloat16 eval step computes it."""
+    import torch
+    with torch.autocast('cuda', dtype=torch.bfloat16):
+        return model(x, pre_tail=True)[0].contiguous()
+
+
 def step_breakdown(model, batch, transform, eval_step, device_name):
     """Device time of one warm eval step at batch 16 and of its parts, with
-    CUDA events (these launches come after the main path's count)."""
+    CUDA events (these launches come after the main path's count), and of
+    the bfloat16 eval step."""
+    import numpy as np
     import torch
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import eval_tail, eval_tail_plain
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_eval_step, steps
     imgs, segs = (t.cuda() for t in batch)
     (img_lo, img_hi), (seg_hi, _) = transform(imgs, segs)
     ones = torch.ones(imgs.shape[0], device='cuda')
@@ -572,6 +634,30 @@ def step_breakdown(model, batch, transform, eval_step, device_name):
             'eval_step_ms': cuda_ms(lambda: eval_step(model, img_lo, img_hi, seg_hi, ones),
                                     iters=5, warmup=2),
         }
+    # The bfloat16 step that validates under --mixed-precision: K3 gets bfloat16.
+    bf16_step = make_eval_step(NUM_CLASSES, 255, amp_dtype=torch.bfloat16)
+    seen = []
+
+    def spy(x, *args):
+        seen.append(x.dtype)
+        return eval_tail(x, *args)
+
+    steps.eval_tail = spy
+    try:
+        ce_bf16 = float(bf16_step(model, img_lo, img_hi, seg_hi, ones)[0]['CE'])
+    finally:
+        steps.eval_tail = eval_tail
+    times['eval_step_bf16_ms'] = cuda_ms(lambda: bf16_step(model, img_lo, img_hi, seg_hi, ones),
+                                         iters=5, warmup=2)
+    times['eval_step_bf16_img_per_s'] = imgs.shape[0] / times['eval_step_bf16_ms'] * 1e3
+    with torch.inference_mode():
+        y16 = bf16_step_activation(model, x)
+        times['tail_kernel_bf16_ms'] = cuda_ms(
+            lambda: eval_tail(y16, tail.weight, tail.bias, seg_hi), iters=20)
+    times['eval_step_ce'], times['eval_step_bf16_ce'] = float(eval_step(
+        model, img_lo, img_hi, seg_hi, ones)[0]['CE']), ce_bf16
+    if seen != [torch.bfloat16] or not np.isfinite(ce_bf16):
+        fail("the bfloat16 eval step handed K3 {} and gave CE {}".format(seen, ce_bf16))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eval_step(model, img_lo, img_hi, seg_hi, ones)
@@ -987,6 +1073,21 @@ def train_step_phase(device_name, weights, stage):
     return times
 
 
+def sass_counts(libs):
+    """Counts of tensor-core (HMMA) and asynchronous-copy (LDGSTS)
+    instructions in each library's SASS, where cuobjdump is present."""
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    tool = os.path.join(cuda_home, 'bin', 'cuobjdump')
+    tool = tool if os.path.isfile(tool) else shutil.which('cuobjdump')
+    if not tool:
+        print("cuobjdump not found: no SASS counts", flush=True)
+        return
+    for name, path in sorted(libs.items()):
+        sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, timeout=120).stdout
+        print("SASS of {}: {} HMMA, {} LDGSTS".format(name, sass.count('HMMA'), sass.count('LDGSTS')),
+              flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1012,6 +1113,7 @@ def main():
     for path in libs.values():
         with open(path + '.log') as f:
             print(f.read().strip(), flush=True)
+    sass_counts(libs)
 
     k3 = kernel_phase()
     k1 = k1_phase()

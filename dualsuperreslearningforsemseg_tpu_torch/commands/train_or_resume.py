@@ -94,7 +94,8 @@ def train(device, mixed_precision, disable_cudnn_benchmark, num_workers, dataset
                                   unshuffle_hi=SISR_UPSCALE if stage > 1 else 0)
     train_step = make_train_step(model, optimizer, stage, w1, w2, ds.IGNORE_CLASS_LABEL,
                                  freeze_batch_norm, post_fn=post_fn, amp_dtype=amp_dtype)
-    eval_step = make_eval_step(ds.NUM_CLASSES, ds.IGNORE_CLASS_LABEL, stage, w1, w2)
+    eval_step = make_eval_step(ds.NUM_CLASSES, ds.IGNORE_CLASS_LABEL, stage, w1, w2,
+                               amp_dtype=amp_dtype)
     eval_transform = make_eval_transform_fn(settings.MODEL_INPUT_SIZE, settings.MODEL_OUTPUT_SIZE,
                                             ds.MEAN, ds.STD, ds.LABEL_MAPPING_LUT)
     train_loader = make_train_loader(train_set, batch_size, num_workers, device,

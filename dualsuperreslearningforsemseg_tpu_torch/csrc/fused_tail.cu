@@ -5,49 +5,66 @@
 // Replaces the Pallas TPU kernels of `convt_cols_ce_sum` in
 // dualsuperreslearningforsemseg_tpu/ops/pallas/fused_tail.py: `_fwd_kernel`
 // (pallas_call at line 218, in `_fwd_impl`) and `_bwd_kernel` (pallas_call
-// at line 251, in `_vjp_bwd`).  The per-pixel logits and CE terms come from
-// tail_common.cuh, shared with the eval tail (eval_tail.cu).
+// at line 251, in `_vjp_bwd`).  The logits and CE terms come from
+// tail_common.cuh, shared with the eval tail (eval_tail.cu), and so does
+// the rounding rule: for a bfloat16 x the weight is rounded to bfloat16
+// for every product, sums are float32 and the bias float32.
 //
 // Forward: (ce_sum, count) = (sum of the NLL over valid output pixels,
 // number of valid output pixels).  One thread per pre-tail pixel (b, h, w),
 // consecutive threads along w (coalesced channel loads), the 4 x C logits in
-// registers; each block writes its CE sum (float64) and count to its own
-// slot and a one-block pass sums the slots in a fixed order, so the result
-// is the same from run to run.
+// registers on the CUDA cores (`tail_logits`); each block writes its CE sum
+// (float64) and count to its own slot and a one-block pass sums the slots
+// in a fixed order, so the result is the same from run to run.
 //
 // Backward, given `scale` = the cotangent of ce_sum as a device scalar (no
-// host sync): per output pixel dlogits = (softmax - onehot) * scale * valid,
+// host sync): per output pixel dlogits = (softmax - onehot) * scale * valid
+// (float32),
 //   dX[ci]          = sum_{pos, co} dlogits[pos, co] * W[ci, co, pos]
 //   dW[ci, co, pos] = sum_pixels x[ci] * dlogits[pos, co]
-//   db[co]          = sum_pixels sum_pos dlogits[pos, co]
-// dX is written in x's dtype.  dW and db are reduced without float
-// atomics, in a fixed order, so two launches on the same inputs give
-// bit-identical results: a fixed grid of blocks (one per SM) walks tiles of
-// 256 pixels, block i taking tiles i, i + grid, ...  For each tile a thread
-// per pixel recomputes the logits, writes dX and stages x (plus a row of
-// ones, which turns db into one more row of the same product) and the 76
-// dlogits of its pixel in shared memory; then 240 threads, one per
-// (pixel slice, row), add the tile's share of the (20 x 76) product to
-// their running sums, kept in shared memory between tiles and in registers
-// within one.  At the end each block sums its 12 slices in float64 into its
-// own partial (1520 doubles; 1.6 MB for 132 blocks, not one partial per
-// tile), and a one-block pass sums the partials over blocks in float64.
+//   db[co]          = sum_pixels sum_pos dlogits[pos, co]   (float32 dlogits)
+// For a bfloat16 x the dX and dW products take dlogits rounded to bfloat16
+// (fused_tail.py:173 there) and dX is rounded to bfloat16 at the end.
+//
+// Backward design: a persistent grid (the SM count times the blocks the
+// occupancy allows per SM) walks tiles of 128 consecutive pre-tail pixels,
+// block i taking tiles i, i + grid, ...  Each of the 8 warps owns 16 pixels
+// of a tile and works on them alone: it loads their (C, 16) activation slab
+// with cp.async into one of its two shared buffers while it computes on
+// the other, loads their labels and offsets into registers one tile ahead,
+// and runs on the tensor cores with mma.sync (3xTF32 for float32 x, one
+// bfloat16 pass for bfloat16 x; see tail_common.cuh) the logits (16 x 80)
+// = X^T . W, whose columns are ordered so that each lane holds whole output
+// pixels: each lane adds the bias, takes the softmax once (`exp_sum` keeps
+// exp(l - m)) and turns its logits into dlogits in its accumulators, and
+// writes them to the warp's shared tile, from which dX (16 x 24) = dlogits
+// . W^T (written to global memory in x's dtype) reads them back as pairs
+// (keeping them in registers through dX spilled).  The block meets twice a
+// tile, around dW^T (80 x 24) += dlogits^T .
+// X^T over all 128 pixels, whose accumulators stay in registers across the
+// block's tiles (15 m16n8 tiles, two per warp), and db, the float32 column
+// sums of the dlogits in three fixed pixel ranges.  At the end each block
+// writes its dW and db partial in float64 to its own slot and a one-block
+// pass adds the slots in a fixed order: no float atomics, so two launches
+// on the same inputs give bit-identical results.
 //
 // Layout: x is NCHW (float32 or bfloat16), contiguous, as the model gives
-// it; labels are (B, 2H, 2W) uint8, read as 2-byte pairs.  The TPU kernel's
-// 128-column carry, block-diagonal (512, 128) weight and g16 labels existed
-// for its 128 lanes and are not carried over.
+// it; labels are (B, 2H, 2W) uint8, read as 2-byte pairs.  A tile may cross
+// image rows and samples (the loader falls back to plain loads there).  The
+// TPU kernel's 128-column carry, block-diagonal (512, 128) weight and g16
+// labels existed for its 128 lanes and are not carried over.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 off the tensor cores)
-// at the stage-1 recipe (x 8x19x256x512 float32, 4.19 M output pixels):
-//   forward: reads x (79.7 MB) and the labels (4.2 MB): 25 us; 4.19 M x
-//     (2*19*19 + 6*19) = 836 ops per output pixel = 3.5 GOP: 52 us.
-//   backward: reads x and the labels, writes dX: 163.6 MB, 49 us; per output
-//     pixel the logits, dX and dW products (3 x 722 flops) and the softmax
-//     (~6 x 19): ~2,300 ops, 9.6 GOP: 0.14 ms.
-// Both are bound by FP32 arithmetic on the CUDA cores.  This first design
-// keeps every product in FP32 FMAs; tensor cores (mma/wgmma for the 19x19
-// products) are later work.
+// Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 and 989 bf16 on the
+// tensor cores; 67 TFLOP/s FP32 off them) at the stage-1 recipe (x
+// 8x19x256x512 float32, 4.19 M output pixels):
+//   forward: reads x (79.7 MB) and the labels (4.2 MB): 25 us; its CUDA-core
+//     design counts 4.19 M x (2*19*19 + 6*19) = 3.5 GOP of FP32: 52 us.
+//   backward: reads x and the labels, writes dX: 163.6 MB, 49 us; the three
+//     19x19 products are 9.08 GFLOP, three TF32 passes at 495 TFLOP/s: 55 us
+//     (one bfloat16 pass at 989: 9 us, and half the bytes); the softmax and
+//     dlogits (~9 x 19 operations per output pixel) 0.72 GOP of FP32: 11 us.
+// So the float32 backward is bound by its 3xTF32 products, the bfloat16 one
+// by its bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,24 +75,35 @@
 namespace {
 
 using dsrl_tail::kC;
+using dsrl_tail::kN;
+using dsrl_tail::kNPad;
+using dsrl_tail::kThreads;
+using dsrl_tail::kTileP;
+using dsrl_tail::kWarpP;
+using dsrl_tail::kWarps;
+using dsrl_tail::from_float;
+using dsrl_tail::to_float;
 constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
-constexpr int kBwdThreads = 256;                // = pixels per tile
-constexpr int kRows = kC + 1;                   // x channels and a row of ones (db)
-constexpr int kCols = 4 * kC;                   // (output position, class)
-constexpr int kGroups = kBwdThreads / kRows;    // pixel slices of the contraction: 12
-// x and dlogits tiles, and the contraction threads' running sums: 171,264
-constexpr int kBwdSmemBytes = (kBwdThreads * (kRows + kCols) + kGroups * kRows * kCols) * 4;
+constexpr int kRows = kC + 1;                   // dW's channels and db
+constexpr int kCols = kN;                       // (output position, class)
+constexpr int kSWT = 24;                        // dX's B table row stride (words)
+constexpr int kSL = 88;                         // dlogits row stride (floats): conflict-free loads
+constexpr int kWarpL = kWarpP * kSL;            // a warp's dlogits
 constexpr int kFinalThreads = 1024;
-static_assert(kCols % 4 == 0, "dlogits rows are read as float4");
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as torch's cast
-}
+// Shared memory of the backward kernel, in bytes (each part a multiple of 16).
+template <typename T> struct BwdSmem {
+  static constexpr int kX = kWarps * 2 * kC * dsrl_tail::kSlabStride * (int)sizeof(T);   // two slabs a warp
+  static constexpr int kL = kWarps * kWarpL * 4;              // each warp's dlogits
+  static constexpr int kW = dsrl_tail::b_table_words<T>(dsrl_tail::LogitsK<T>::kPad, dsrl_tail::kSW) * 4;
+  static constexpr int kWT = dsrl_tail::b_table_words<T>(kNPad, kSWT) * 4;   // W^T for dX
+  static constexpr int kB = 80;                               // bias per class (20 floats)
+  static constexpr int kLab = kWarps * 2 * kWarpP * 4;        // labels, two parts a warp
+  static constexpr int kOff = kWarps * 2 * kWarpP * 8;        // x offsets, two parts a warp
+  static constexpr int kDb = 3 * kNPad * 4;                   // db's column sums
+  static constexpr int kBytes = kX + kL + kW + kWT + kB + kLab + kOff + kDb;
+};
 
 // Where pre-tail pixel p lives: its sample, its offset in a channel plane,
 // and the first label byte of its 2x2 output block.
@@ -102,7 +130,7 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   __shared__ dsrl_tail::TailParams s_p;
   __shared__ double s_ce[kFwdWarps];
   __shared__ int s_cnt[kFwdWarps];
-  dsrl_tail::load_tail_params(s_p, weight, bias);
+  dsrl_tail::load_tail_params(s_p, weight, bias, sizeof(T) == 2);
   __syncthreads();
 
   const long long p = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
@@ -129,7 +157,10 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
       float l[kC];
       dsrl_tail::tail_logits(xv, s_p, kh * 2 + kw, l);
       const bool valid = active && lab != ignore_label;
-      if (valid) ce += dsrl_tail::ce_nll(dsrl_tail::ce_terms(l, lab));
+      if (valid) {
+        const float picked = dsrl_tail::picked_logit(l, lab), m = dsrl_tail::row_max(l);
+        ce += dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);
+      }
       n_valid += valid;
     }
   }
@@ -181,106 +212,270 @@ fwd_sum_kernel(const double* __restrict__ ce_partials, const long long* __restri
   }
 }
 
+// Turns one output pixel's logits (with bias) into its dlogits, in place:
+// (softmax - onehot) * scale where the pixel is active and its label is not
+// ignored, else 0; the padding class 19 becomes 0 too.
+template <typename Row>
+__device__ __forceinline__ void to_dlogits(const Row& l, int lab, bool active, float scale,
+                                           int ignore_label) {
+  const bool valid = active && lab != ignore_label;
+  const float inv_z = 1.f / dsrl_tail::exp_sum(l, dsrl_tail::row_max(l));
+#pragma unroll
+  for (int co = 0; co < kC; ++co) l[co] = valid ? (l[co] * inv_z - (co == lab ? 1.f : 0.f)) * scale : 0.f;
+  l[kC] = 0.f;
+}
+
+// dX of a warp's 16 pixels: (16 x 24) = dlogits (16 x 80) . W^T (80 x 24),
+// the dlogits read back from the warp's shared tile `s_lw` (row p, column
+// n) as pairs: for bfloat16 columns 2t, 2t + 1 of a k16 step, the m16n8k16
+// layout; for TF32 the k8 step nt takes columns nt*8 + 2t and + 1 as its
+// columns t and t + 4, and the dX B table (`dx_table_col`) is ordered to
+// match.  Written in x's dtype for the real channels of the active pixels.
+template <typename T>
+__device__ __forceinline__ void part_dx(const float* s_lw, const uint32_t* s_wtb, const long long* s_off,
+                                        T* __restrict__ dx, long long p0, long long npix, unsigned hw,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float acc[3][4] = {};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int nt = 0; nt < dsrl_tail::kNT; ++nt) {
+      const float2 r0 = *reinterpret_cast<const float2*>(s_lw + g * kSL + nt * 8 + 2 * t);
+      const float2 r1 = *reinterpret_cast<const float2*>(s_lw + (g + 8) * kSL + nt * 8 + 2 * t);
+      uint32_t a_hi[4], a_lo[4];
+      dsrl_tail::split_tf32(r0.x, a_hi[0], a_lo[0]);
+      dsrl_tail::split_tf32(r1.x, a_hi[1], a_lo[1]);
+      dsrl_tail::split_tf32(r0.y, a_hi[2], a_lo[2]);
+      dsrl_tail::split_tf32(r1.y, a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int ct = 0; ct < 3; ++ct) {
+        uint32_t b_hi[2], b_lo[2];
+        dsrl_tail::b_frag_tf32(s_wtb, kNPad, kSWT, nt * 8, ct * 8 + g, t, b_hi, b_lo);
+        dsrl_tail::mma_3xtf32(acc[ct], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < kNPad; k0 += 16) {
+      uint32_t a[4];   // dlogits rounded to bfloat16 (fused_tail.py:173)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(s_lw + (g + 8 * (i & 1)) * kSL + k0 + 8 * (i >> 1) + 2 * t);
+        a[i] = dsrl_tail::pack_bf16(v.x, v.y);
+      }
+#pragma unroll
+      for (int ct = 0; ct < 3; ++ct) {
+        uint32_t b[2];
+        dsrl_tail::b_frag_bf16(s_wtb, kSWT, k0, ct * 8 + g, t, b);
+        dsrl_tail::mma_bf16(acc[ct], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = g + 8 * hr;
+    if (p0 + p < npix) {
+      T* dp = dx + s_off[p];
+#pragma unroll
+      for (int ct = 0; ct < 3; ++ct)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int ci = ct * 8 + 2 * t + j;
+          if (ci < kC) dp[ci * (long long)hw] = from_float<T>(acc[ct][2 * hr + j]);
+        }
+    }
+  }
+}
+
+// The logits column (dlogits column of dX's A operand) that row k of dX's B
+// table stands for: for TF32, row r < 4 of k8 step nt is column nt*8 + 2r,
+// row r + 4 column nt*8 + 2r + 1 (see `part_dx`); for bfloat16 row k.
+template <typename T>
+__device__ __forceinline__ int dx_table_col(int k) {
+  if constexpr (sizeof(T) == 4) {
+    const int r = k % 8;
+    return k - r + (r < 4 ? 2 * r : 2 * (r - 4) + 1);
+  } else {
+    return k;
+  }
+}
+
+// dW^T (80 x 24) += dlogits^T (80 x 128) . X^T (128 x 24) over the block's
+// tile for the m16n8 tile `id` of 15 (rows = logits columns, 5 x 16;
+// columns = channels, 3 x 8).  Pixel k of the tile is pixel k % 16 of warp
+// k / 16's part: its dlogits at s_l + (k / 16) * kWarpL, its slab at s_x +
+// (k / 16) * warp_slabs.
+template <typename T>
+__device__ __forceinline__ void tile_dw(const float* s_l, const T* s_x, int warp_slabs, int id, int lane,
+                                        float (&acc)[4]) {
+  constexpr int SX = dsrl_tail::kSlabStride;
+  const int g = lane >> 2, t = lane & 3;
+  const int m = (id / 3) * 16 + g;      // logits column
+  const int ci = (id % 3) * 8 + g;      // x channel
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float* lw = s_l + w * kWarpL;
+    const T* xw = s_x + w * warp_slabs;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int k0 = 0; k0 < kWarpP; k0 += 8) {
+        uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+        dsrl_tail::split_tf32(lw[(k0 + t) * kSL + m], a_hi[0], a_lo[0]);
+        dsrl_tail::split_tf32(lw[(k0 + t) * kSL + m + 8], a_hi[1], a_lo[1]);
+        dsrl_tail::split_tf32(lw[(k0 + t + 4) * kSL + m], a_hi[2], a_lo[2]);
+        dsrl_tail::split_tf32(lw[(k0 + t + 4) * kSL + m + 8], a_hi[3], a_lo[3]);
+        dsrl_tail::split_tf32(dsrl_tail::slab_at(xw, ci, k0 + t), b_hi[0], b_lo[0]);
+        dsrl_tail::split_tf32(dsrl_tail::slab_at(xw, ci, k0 + t + 4), b_hi[1], b_lo[1]);
+        dsrl_tail::mma_3xtf32(acc, a_hi, a_lo, b_hi, b_lo);
+      }
+    } else {
+      const int r0 = 2 * t, r1 = r0 + 8;
+      uint32_t a[4], b[2];
+      a[0] = dsrl_tail::pack_bf16(lw[r0 * kSL + m], lw[(r0 + 1) * kSL + m]);
+      a[1] = dsrl_tail::pack_bf16(lw[r0 * kSL + m + 8], lw[(r0 + 1) * kSL + m + 8]);
+      a[2] = dsrl_tail::pack_bf16(lw[r1 * kSL + m], lw[(r1 + 1) * kSL + m]);
+      a[3] = dsrl_tail::pack_bf16(lw[r1 * kSL + m + 8], lw[(r1 + 1) * kSL + m + 8]);
+      b[0] = ci < kC ? *reinterpret_cast<const uint32_t*>(xw + ci * SX + r0) : 0u;
+      b[1] = ci < kC ? *reinterpret_cast<const uint32_t*>(xw + ci * SX + r1) : 0u;
+      dsrl_tail::mma_bf16(acc, a, b);
+    }
+  }
+}
+
 // partials: [gridDim.x][kRows][kCols] float64, row r < C = channel r of dW
 // at column pos*C + co; row C = db at the same columns.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_tail_bwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
                       const float* __restrict__ bias, const uint8_t* __restrict__ labels,
                       const float* __restrict__ scale_ptr, T* __restrict__ dx,
                       double* __restrict__ partials, int height, int width, long long npix,
                       int ignore_label) {
-  extern __shared__ __align__(16) float s_dyn[];
-  float* s_x = s_dyn;                                  // [kBwdThreads][kRows]
-  float* s_dl = s_x + kBwdThreads * kRows;             // [kBwdThreads][kCols]
-  float* s_acc = s_dl + kBwdThreads * kCols;           // [kGroups * kRows][kCols]
-  __shared__ dsrl_tail::TailParams s_p;
-  dsrl_tail::load_tail_params(s_p, weight, bias);
+  using S = BwdSmem<T>;
+  constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  T* s_xall = reinterpret_cast<T*>(smem);                                // [warp][2][C][24]
+  float* s_lall = reinterpret_cast<float*>(smem + S::kX);               // [warp][16][kSL]
+  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL);    // logits' B table
+  uint32_t* s_wtb = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL + S::kW);   // dX's B table
+  float* s_b = reinterpret_cast<float*>(smem + S::kX + S::kL + S::kW + S::kWT);
+  // This warp's slabs, dlogits, labels and x offsets.
+  T* s_x = s_xall + warp * 2 * kSlabElems;
+  float* s_l = s_lall + warp * kWarpL;
+  uint32_t* s_lab = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB) +
+                    warp * 2 * kWarpP;
+  long long* s_off = reinterpret_cast<long long*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB +
+                                                  S::kLab) + warp * 2 * kWarpP;
+  float* s_db = reinterpret_cast<float*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB + S::kLab +
+                                         S::kOff);   // [kDbParts * 80]
 
-  const int tid = threadIdx.x;
-  const int g = tid / kRows, r = tid - g * kRows;   // contraction role
-  const bool contracts = g < kGroups;
   const float scale = *scale_ptr;
-  const long long hw = (long long)height * width;
-  const long long out_w = 2LL * width;
-  const long long ntiles = (npix + kBwdThreads - 1) / kBwdThreads;
-  if (contracts) {
-    for (int j = 0; j < kCols; ++j) s_acc[tid * kCols + j] = 0.f;
+  const unsigned hw = (unsigned)height * (unsigned)width;
+  const long long ntiles = (npix + kTileP - 1) / kTileP;
+  const unsigned stride = gridDim.x * kTileP;   // pixels from one of the block's tiles to the next
+
+  dsrl_tail::load_tile_weights<T>(s_wb, s_b, weight, bias);
+  dsrl_tail::fill_b_table<T>(s_wtb, kNPad, kSWT, [&](int k, int ci) {
+    const int n = dx_table_col<T>(k), co = dsrl_tail::col_class(n);
+    return co < kC && ci < kC ? weight[(ci * kC + co) * 4 + dsrl_tail::col_pos(n)] : 0.f;
+  });
+  // Each warp loads, multiplies and reduces its 16-pixel part of the tile
+  // (logits, dlogits, dX) on its own; the block meets twice a tile, around
+  // dW, which takes every warp's part.
+  long long tile = blockIdx.x;
+  long long p0 = tile * kTileP + warp * kWarpP;
+  const dsrl_tail::PixelPos pos = dsrl_tail::pixel_pos(p0, hw);
+  dsrl_tail::load_x_part<T>(s_x, x, p0, pos, npix, hw, lane);
+  dsrl_tail::cp_async_commit();
+  if (lane < kWarpP) {
+    const dsrl_tail::PixelInfo info =
+        dsrl_tail::pixel_info(labels, p0 + lane, dsrl_tail::advance(pos, lane, hw), npix, width, hw);
+    s_lab[lane] = info.labels4;
+    s_off[lane] = info.xoff;
   }
+
+  // db: thread tid < 240 sums logits column tid % 80 over the pixels of part
+  // tid / 80 of the tile into its slot s_db[tid].
+  constexpr int kDbParts = kThreads / kNPad, kDbSpan = (kTileP + kDbParts - 1) / kDbParts;
+  const int db_col = tid % kNPad, db_part = tid / kNPad;
+  if (db_part < kDbParts) s_db[tid] = 0.f;
+  float dw_acc[2][4] = {};   // dW^T tiles warp and warp + 8 (of 15)
+  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    const int cur = it & 1;
+    const bool more = tile + gridDim.x < ntiles;
+    const long long p0_next = p0 + stride;
+    const dsrl_tail::PixelPos pos_next = dsrl_tail::pixel_pos(p0_next, hw);
+    __syncthreads();   // every warp is done with the previous tile (dW reads all parts)
+    if (more) dsrl_tail::load_x_part<T>(s_x + (cur ^ 1) * kSlabElems, x, p0_next, pos_next, npix, hw, lane);
+    dsrl_tail::cp_async_commit();
+    dsrl_tail::cp_async_wait<1>();
+    __syncwarp();      // this part's slab has landed
+    float acc[dsrl_tail::kNT][4];
+    dsrl_tail::tile_logits_mma<T>(s_x + cur * kSlabElems, s_wb, lane, acc);
+    // The next part's labels and offsets: loaded now, stored after the
+    // softmax (out of the registers' busiest stretch, the logits product).
+    dsrl_tail::PixelInfo info_next = {0, 0, 0u};
+    if (lane < kWarpP && more)
+      info_next = dsrl_tail::pixel_info(labels, p0_next + lane, dsrl_tail::advance(pos_next, lane, hw),
+                                        npix, width, hw);
+    // Lane (g, t) owns output position t of pixels g and g + 8: it turns
+    // their logits into dlogits in place, in the accumulators.
+    to_dlogits(dsrl_tail::lane_logits<0>(acc, s_b), s_lab[cur * kWarpP + g] >> (8 * t) & 0xff,
+               p0 + g < npix, scale, ignore_label);
+    to_dlogits(dsrl_tail::lane_logits<1>(acc, s_b), s_lab[cur * kWarpP + g + 8] >> (8 * t) & 0xff,
+               p0 + g + 8 < npix, scale, ignore_label);
+    if (lane < kWarpP && more) {
+      s_lab[(cur ^ 1) * kWarpP + lane] = info_next.labels4;
+      s_off[(cur ^ 1) * kWarpP + lane] = info_next.xoff;
+    }
+    // The dlogits to this warp's shared tile for dW and db (row p, column n).
+#pragma unroll
+    for (int nt = 0; nt < dsrl_tail::kNT; ++nt) {
+      *reinterpret_cast<float2*>(s_l + g * kSL + nt * 8 + 2 * t) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(s_l + (g + 8) * kSL + nt * 8 + 2 * t) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+    __syncwarp();      // the dlogits leave the registers: dX reads them back
+    part_dx<T>(s_l, s_wtb, s_off + cur * kWarpP, dx, p0, npix, hw, lane);
+    __syncthreads();   // every warp's dlogits are in place
+    const T* xs = s_xall + cur * kSlabElems;
+    tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp, lane, dw_acc[0]);
+    if (warp + 8 < 15) tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp + 8, lane, dw_acc[1]);
+    if (db_part < kDbParts) {
+      float sum = 0.f;
+      const int p_end = min(kTileP, (db_part + 1) * kDbSpan);
+      for (int p = db_part * kDbSpan; p < p_end; ++p)
+        sum += s_lall[(p / kWarpP) * kWarpL + (p % kWarpP) * kSL + db_col];
+      s_db[tid] += sum;
+    }
+    p0 = p0_next;
+  }
+  dsrl_tail::cp_async_wait<0>();
   __syncthreads();
 
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    // Pixel phase: one thread per pixel.
-    const long long p = tile * kBwdThreads + tid;
-    const bool active = p < npix;
-    const Pixel px = locate(active ? p : 0, height, width);
-    float xv[kC];
-    {
-      const T* xp = x + px.b * kC * hw + px.rem;
+  // The block's partial, float64, at column pos*C + co of logits column n.
+  // dW from the accumulators (each entry has one owner); db from the parts'
+  // column sums, in part order.
+  double* part = partials + (long long)blockIdx.x * kRows * kCols;
 #pragma unroll
-      for (int ci = 0; ci < kC; ++ci) xv[ci] = active ? to_float(xp[ci * hw]) : 0.f;
-    }
+  for (int s = 0; s < 2; ++s) {
+    const int id = warp + 8 * s;
+    if (id < 15) {
 #pragma unroll
-    for (int ci = 0; ci < kC; ++ci) s_x[tid * kRows + ci] = xv[ci];
-    s_x[tid * kRows + kC] = 1.f;
-    float dxv[kC];
-#pragma unroll
-    for (int ci = 0; ci < kC; ++ci) dxv[ci] = 0.f;
-#pragma unroll 1
-    for (int kpos = 0; kpos < 4; ++kpos) {
-      const int kh = kpos >> 1, kw = kpos & 1;
-      const int lab = active ? labels[px.out0 + kh * out_w + kw] : 0;
-      float l[kC];
-      dsrl_tail::tail_logits(xv, s_p, kpos, l);
-      const dsrl_tail::CeTerms t = dsrl_tail::ce_terms(l, lab);
-      const bool valid = active && lab != ignore_label;
-#pragma unroll
-      for (int co = 0; co < kC; ++co) {
-        const float d = valid ? (expf(l[co] - t.m) / t.z - (co == lab ? 1.f : 0.f)) * scale : 0.f;
-        s_dl[tid * kCols + kpos * kC + co] = d;
-        dsrl_tail::axpy_row(d, s_p.wt[kpos][co], dxv);
+      for (int j = 0; j < 4; ++j) {
+        const int n = (id / 3) * 16 + g + (j >= 2 ? 8 : 0);
+        const int ci = (id % 3) * 8 + 2 * t + (j & 1);
+        const int co = dsrl_tail::col_class(n);
+        if (co < kC && ci < kC) part[ci * kCols + dsrl_tail::col_pos(n) * kC + co] = (double)dw_acc[s][j];
       }
     }
-    if (active) {
-      T* dp = dx + px.b * kC * hw + px.rem;
-#pragma unroll
-      for (int ci = 0; ci < kC; ++ci) dp[ci * hw] = from_float<T>(dxv[ci]);
-    }
-    __syncthreads();
-    // Contraction phase: thread (g, r) adds x[r] * dlogits[:] of the pixels
-    // g, g + kGroups, ... of the tile, in that order, to its running sums.
-    if (contracts) {
-      float acc[kCols];
-      float4* a4 = reinterpret_cast<float4*>(s_acc + tid * kCols);
-#pragma unroll
-      for (int j = 0; j < kCols / 4; ++j) {
-        const float4 v = a4[j];
-        acc[4 * j] = v.x; acc[4 * j + 1] = v.y; acc[4 * j + 2] = v.z; acc[4 * j + 3] = v.w;
-      }
-      for (int t = g; t < kBwdThreads; t += kGroups) {
-        const float xr = s_x[t * kRows + r];
-        const float4* d4 = reinterpret_cast<const float4*>(s_dl + t * kCols);
-#pragma unroll
-        for (int j = 0; j < kCols / 4; ++j) {
-          const float4 v = d4[j];
-          acc[4 * j + 0] = fmaf(xr, v.x, acc[4 * j + 0]);
-          acc[4 * j + 1] = fmaf(xr, v.y, acc[4 * j + 1]);
-          acc[4 * j + 2] = fmaf(xr, v.z, acc[4 * j + 2]);
-          acc[4 * j + 3] = fmaf(xr, v.w, acc[4 * j + 3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kCols / 4; ++j)
-        a4[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    __syncthreads();
   }
-
-  // The block's partial: its kGroups slices summed in order, in float64.
-  for (int o = tid; o < kRows * kCols; o += kBwdThreads) {
-    double t = 0.0;
-    for (int gg = 0; gg < kGroups; ++gg) t += (double)s_acc[gg * kRows * kCols + o];
-    partials[(long long)blockIdx.x * kRows * kCols + o] = t;
+  if (tid < kNPad && dsrl_tail::col_class(tid) < kC) {
+    double sum = 0.0;
+#pragma unroll
+    for (int i = 0; i < kDbParts; ++i) sum += (double)s_db[i * kNPad + tid];
+    part[kC * kCols + dsrl_tail::col_pos(tid) * kC + dsrl_tail::col_class(tid)] = sum;
   }
 }
 
@@ -324,18 +519,22 @@ int launch_fwd(const void* x, const float* weight, const float* bias, const uint
 
 template <typename T>
 int bwd_grid(long long npix, int* grid) {
+  const int smem = BwdSmem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(fused_tail_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fused_tail_bwd_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_bwd_kernel<T>,
-                                                           kBwdThreads, kBwdSmemBytes)) != cudaSuccess)
+                                                           kThreads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long ntiles = (npix + kBwdThreads - 1) / kBwdThreads;
+  const long long ntiles = (npix + kTileP - 1) / kTileP;
   const long long full = (long long)sms * per_sm;
   *grid = (int)(ntiles < full ? ntiles : full);
   return 0;
@@ -350,7 +549,7 @@ int launch_bwd(const void* x, const float* weight, const float* bias, const uint
   const int err0 = bwd_grid<T>(npix, &expected);
   if (err0) return err0;
   if (grid != expected) return (int)cudaErrorInvalidValue;   // partials sized for another grid
-  fused_tail_bwd_kernel<T><<<grid, kBwdThreads, kBwdSmemBytes, s>>>(
+  fused_tail_bwd_kernel<T><<<grid, kThreads, BwdSmem<T>::kBytes, s>>>(
       static_cast<const T*>(x), weight, bias, labels, scale, static_cast<T*>(dx), partials,
       height, width, npix, ignore_label);
   cudaError_t err = cudaGetLastError();

@@ -99,10 +99,12 @@ class SSSRDecoder(nn.Module):
 
     def fa_corner(self, y):
         """The stride-8 sample of the logits, from the pre-tail activation
-        ``y``: the final ConvT's (0, 0) tap at every 4th pixel."""
+        ``y``: the final ConvT's (0, 0) tap at every 4th pixel.  Under
+        autocast the product is bfloat16 and the bias is added in bfloat16,
+        as the JAX package's ``conv_transpose_2x2_stride2_corner`` adds it."""
         tail = self.upsample16_pred[6]
         corner = torch.einsum('bihw,io->bohw', y[:, :, ::4, ::4], tail.weight[:, :, 0, 0])
-        return corner + tail.bias.reshape(1, -1, 1, 1)
+        return corner + tail.bias.to(corner.dtype).reshape(1, -1, 1, 1)
 
 
 class FeatureTransformer(nn.Sequential):

@@ -8,6 +8,10 @@ kernel ``csrc/eval_tail.cu`` for CUDA tensors and runs
 tensors; the CPU tests and the card-side comparison in ``chip_smoke.py`` use
 the plain version.  The kernel takes the natural NCHW activation: the TPU's
 channel-padded-columns and g16 label layouts existed for its 128 lanes.
+A bfloat16 activation (validation under ``--mixed-precision``) takes the
+TPU kernel's rounding rule: the weight rounded to bfloat16 for every
+product, float32 sums and a float32 bias (``ops/fused_tail.py::
+tail_logits_plain``).
 
 Both return ``(pred, ce_sum, (area_pred, area_inter, area_target),
 (correct, valid))``: the (B, 2H, 2W) uint8 class map, the CE summed over
@@ -18,18 +22,18 @@ exact only below 2^24 pixels).
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from ..losses.cross_entropy import cross_entropy_sum
 from ..metrics.device import argmax_lastdim, batch_histograms, batch_accuracy_counts
+from .fused_tail import DTYPE_CODES, tail_logits_plain
 
-_C_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_C_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def eval_tail_plain(x, weight, bias, labels, ignore_label: int = 255):
     """The plain PyTorch version: materialises the logits."""
-    logits = F.conv_transpose2d(x.float(), weight.float(), bias.float(), stride=2)
-    logits = logits.permute(0, 2, 3, 1)                      # (B, 2H, 2W, C)
+    logits = tail_logits_plain(x, weight, bias).permute(0, 2, 3, 1)   # (B, 2H, 2W, C)
     pred = argmax_lastdim(logits)
     ce_sum, _ = cross_entropy_sum(logits, labels, ignore_label)
     areas = batch_histograms(pred, labels, weight.shape[1], ignore_label)
@@ -44,18 +48,22 @@ def _check(x, weight, bias, labels):
     if labels.shape != (b, 2 * h, 2 * w):
         raise ValueError("eval_tail: labels must be {}, got {}".format((b, 2 * h, 2 * w),
                                                                        tuple(labels.shape)))
-    for name, t, dtype in (('x', x, torch.float32), ('weight', weight, torch.float32),
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError("eval_tail: x must be float32 or bfloat16, got {}".format(x.dtype))
+    for name, t, dtype in (('x', x, x.dtype), ('weight', weight, torch.float32),
                            ('bias', bias, torch.float32), ('labels', labels, torch.uint8)):
         if t.dtype != dtype or not t.is_contiguous() or t.device != x.device:
             raise ValueError("eval_tail: {} must be a contiguous {} tensor on {}, got {} {}{}"
                              .format(name, dtype, x.device, t.dtype, t.device,
                                      '' if t.is_contiguous() else ' (not contiguous)'))
+    if h * w >= 2 ** 31:
+        raise ValueError("eval_tail: a sample's plane must hold fewer than 2^31 pixels")
     if labels.data_ptr() % 2:
         raise ValueError("eval_tail: labels must start at an even address (2-byte loads)")
 
 
 def eval_tail(x, weight, bias, labels, ignore_label: int = 255):
-    """x (B, C, H, W) float32 pre-tail activation, weight (C, C, 2, 2) IOHW,
+    """x (B, C, H, W) float32 or bfloat16 pre-tail activation, weight (C, C, 2, 2) IOHW,
     bias (C,), labels (B, 2H, 2W) uint8 -> see the module docstring.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
@@ -67,22 +75,26 @@ def eval_tail(x, weight, bias, labels, ignore_label: int = 255):
     _check(x, weight, bias, labels)
     from ._build import load_library
     lib = load_library('eval_tail')
-    fn = lib.dsrl_eval_tail_f32
+    fn = lib.dsrl_eval_tail
     fn.argtypes, fn.restype = _C_SIGNATURE, ctypes.c_int
     b, c, h, w = x.shape
     if c != lib.dsrl_eval_tail_classes() or x.numel() == 0 or not 0 <= ignore_label < 256:
         raise ValueError("eval_tail kernel: needs {} classes, a non-empty batch and an "
                          "ignore label in [0, 256)".format(lib.dsrl_eval_tail_classes()))
-    threads = lib.dsrl_eval_tail_threads()
+    dtype = DTYPE_CODES[x.dtype]
     pred = torch.empty_like(labels)
-    partials = torch.empty(-(-b * h * w // threads), dtype=torch.float64, device=x.device)
     ce_sum = torch.empty((), dtype=torch.float64, device=x.device)
     counts = torch.zeros(3 * c + 2, dtype=torch.int64, device=x.device)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
-                 pred.data_ptr(), partials.data_ptr(), ce_sum.data_ptr(), counts.data_ptr(),
-                 b, h, w, ignore_label, stream)
+        err = lib.dsrl_eval_tail_grid(ctypes.c_int(dtype), ctypes.c_longlong(b * h * w),
+                                      ctypes.byref(grid))
+        if err:
+            raise RuntimeError("eval_tail: grid query failed: CUDA error {}".format(err))
+        partials = torch.empty(grid.value, dtype=torch.float64, device=x.device)
+        err = fn(dtype, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+                 pred.data_ptr(), partials.data_ptr(), grid.value, ce_sum.data_ptr(),
+                 counts.data_ptr(), b, h, w, ignore_label, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("eval_tail kernel launch failed: CUDA error {}".format(err))
     eval_tail.launches += 1

@@ -13,7 +13,12 @@ under autograd.  The kernels take the natural NCHW activation and the
 
 Semantics (losses/cross_entropy.py): the mean NLL over pixels whose label
 is not ``ignore_label``, 0 when none is; a label in [C, ignore) picks a
-logit of 0 and adds its pixel's full logsumexp.
+logit of 0 and adds its pixel's full logsumexp.  A bfloat16 activation
+(``--mixed-precision``) takes the TPU kernel's rounding rule, in the
+kernels and in the plain version alike: the weight rounded to bfloat16 for
+every product, float32 sums, a float32 bias; in the backward the float32
+dlogits rounded to bfloat16 for the dX and dW products, db from the float32
+dlogits, and dX rounded to bfloat16.
 """
 
 import ctypes
@@ -23,17 +28,63 @@ import torch.nn.functional as F
 
 from ..losses.cross_entropy import cross_entropy_sum
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype argument
 _FWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
+def tail_logits_plain(x, weight, bias):
+    """(B, C, 2H, 2W) float32 logits of the final ConvT by the kernels'
+    rounding rule: the weight in x's dtype (bfloat16 for a bfloat16 x, as
+    the TPU kernel's ``_tile_logits_t`` casts it), every product and sum in
+    float32, the bias added in float32."""
+    return F.conv_transpose2d(x.float(), weight.to(x.dtype).float(), bias.float(), stride=2)
+
+
+class _PlainTailBf16(torch.autograd.Function):
+    """(ce_sum, count) of a bfloat16 x in plain PyTorch, with the TPU
+    kernel's backward written out (``_bwd_kernel``, fused_tail.py:153-184
+    there): dlogits = (softmax - onehot) * scale * valid in float32, rounded
+    to bfloat16 for the dX and dW products (float32 sums), db from the
+    float32 dlogits, dX rounded to bfloat16.  Autograd through the float32
+    logits would keep dlogits in float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, labels, ignore_label):
+        logits = tail_logits_plain(x, weight, bias)
+        ce_sum, count = cross_entropy_sum(logits.permute(0, 2, 3, 1), labels, ignore_label)
+        ctx.save_for_backward(x, weight, bias, labels)
+        ctx.ignore_label = ignore_label
+        ctx.mark_non_differentiable(count)
+        return ce_sum, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        x, weight, bias, labels = ctx.saved_tensors
+        logits = tail_logits_plain(x, weight, bias)
+        e = torch.exp(logits - logits.amax(dim=1, keepdim=True))
+        p = e / e.sum(dim=1, keepdim=True)
+        classes = torch.arange(logits.shape[1], device=x.device).reshape(1, -1, 1, 1)
+        onehot = (classes == labels.long().unsqueeze(1)).float()
+        valid = (labels != ctx.ignore_label).unsqueeze(1).float()
+        dlogits = (p - onehot) * (g_sum.to(torch.float32) * valid)
+        dlb = dlogits.to(x.dtype).float()
+        wb = weight.to(x.dtype).float()
+        dx = F.conv2d(dlb, wb, stride=2).to(x.dtype)          # the ConvT's adjoint
+        b, c, h, w = x.shape
+        dw = torch.einsum('bihw,bohkwl->iokl', x.float(), dlb.reshape(b, c, h, 2, w, 2))
+        return dx, dw, dlogits.sum(dim=(0, 2, 3)), None, None
+
+
 def fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label: int = 255):
     """The plain PyTorch version: materialises the logits.  Returns (CE sum
     over valid pixels as float64, valid count int64), differentiable in x,
-    weight and bias."""
+    weight and bias.  A float32 x takes autograd through the logits; a
+    bfloat16 x the TPU kernel's rounding rule (:class:`_PlainTailBf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _PlainTailBf16.apply(x, weight, bias, labels, ignore_label)
     logits = F.conv_transpose2d(x.float(), weight, bias, stride=2).permute(0, 2, 3, 1)
     return cross_entropy_sum(logits, labels, ignore_label)
 
@@ -57,7 +108,7 @@ def _check(x, weight, bias, labels, ignore_label):
     if labels.shape != (b, 2 * h, 2 * w):
         raise ValueError("fused tail: labels must be {}, got {}".format((b, 2 * h, 2 * w),
                                                                         tuple(labels.shape)))
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in DTYPE_CODES:
         raise ValueError("fused tail: x must be float32 or bfloat16, got {}".format(x.dtype))
     for name, t, dtype in (('x', x, x.dtype), ('weight', weight, torch.float32),
                            ('bias', bias, torch.float32), ('labels', labels, torch.uint8)):
@@ -65,6 +116,8 @@ def _check(x, weight, bias, labels, ignore_label):
             raise ValueError("fused tail: {} must be a contiguous {} tensor on {}, got {} {}{}"
                              .format(name, dtype, x.device, t.dtype, t.device,
                                      '' if t.is_contiguous() else ' (not contiguous)'))
+    if h * w >= 2 ** 31:
+        raise ValueError("fused tail: a sample's plane must hold fewer than 2^31 pixels")
     if labels.data_ptr() % 2:
         raise ValueError("fused tail: labels must start at an even address (2-byte loads)")
     if x.numel() == 0 or not 0 <= ignore_label < 256:
@@ -95,7 +148,7 @@ def fused_tail_forward(x, weight, bias, labels, ignore_label: int = 255):
     ce_sum = torch.empty((), dtype=torch.float64, device=x.device)
     count = torch.empty((), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                  labels.data_ptr(), ce_partials.data_ptr(), cnt_partials.data_ptr(),
                  ce_sum.data_ptr(), count.data_ptr(), b, h, w, ignore_label,
                  torch.cuda.current_stream().cuda_stream)
@@ -118,7 +171,7 @@ def fused_tail_backward(x, weight, bias, labels, scale, ignore_label: int = 255)
     fn = lib.dsrl_fused_tail_bwd
     fn.argtypes, fn.restype = _BWD_SIGNATURE, ctypes.c_int
     grid = ctypes.c_int(0)
-    dtype = _DTYPE_CODES[x.dtype]
+    dtype = DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         err = lib.dsrl_fused_tail_bwd_grid(ctypes.c_int(dtype), ctypes.c_longlong(b * h * w),
                                            ctypes.byref(grid))

@@ -44,6 +44,11 @@ def _sisr_target(img_hi, unshuffled: bool):
     return hi if unshuffled else F.pixel_unshuffle(hi, SISR_UPSCALE)
 
 
+def _autocast(device_type, amp_dtype):
+    return (torch.autocast(device_type, dtype=amp_dtype) if amp_dtype is not None
+            else contextlib.nullcontext())
+
+
 def _check_stage(model, stage):
     if getattr(model, 'stage', None) != stage:
         raise ValueError("the step is for stage {}, the model is stage {}".format(
@@ -85,8 +90,7 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
         for group in optimizer.param_groups:
             group['lr'] = lr
         x = img_lo.permute(0, 3, 1, 2).contiguous()
-        with (torch.autocast(x.device.type, dtype=amp_dtype) if amp_dtype is not None
-              else contextlib.nullcontext()):
+        with _autocast(x.device.type, amp_dtype):
             sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
         ce = fused_convt2_ce_mean(sssr.contiguous(), tail.weight, tail.bias,
                                   seg.to(torch.uint8).contiguous(), ignore_label)
@@ -113,7 +117,7 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
 
 
 def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1: float = 0.0,
-                   w2: float = 0.0):
+                   w2: float = 0.0, amp_dtype=None):
     """Returns fn(model, img_lo, img_hi, seg, sample_mask) ->
     (losses, pred, (area_pred, area_inter, area_target), (correct, valid)).
 
@@ -124,7 +128,9 @@ def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1
     0, so it adds nothing to any loss or count.  ``pred`` is the (B, 2H, 2W)
     uint8 class map; losses are float32 scalars (the terms the stage lacks
     are 0), counts int64.  The caller puts the model (of ``stage``) in eval
-    mode.
+    mode.  ``amp_dtype`` runs the forward under the train step's autocast,
+    as the JAX package validates its bfloat16 model under
+    ``--mixed-precision``: K3 then receives the bfloat16 activation.
     """
     def eval_step(model, img_lo, img_hi, seg, sample_mask):
         _check_stage(model, stage)
@@ -135,9 +141,10 @@ def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1
             mask = sample_mask.to(seg.device).float()
             seg = torch.where(mask.reshape(-1, 1, 1) > 0, seg.to(torch.uint8), ignore_label)
             x = img_lo.permute(0, 3, 1, 2).contiguous()
-            sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
+            with _autocast(x.device.type, amp_dtype):
+                sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
             pred, ce_sum, areas, (correct, valid) = eval_tail(
-                sssr, tail.weight, tail.bias, seg.contiguous(), ignore_label)
+                sssr.contiguous(), tail.weight, tail.bias, seg.contiguous(), ignore_label)
             ce = torch.where(valid > 0, ce_sum / valid.clamp(min=1), 0.0).float()
             mse = fa = torch.zeros((), device=ce.device)
             n_real = mask.sum().clamp(min=1)

@@ -7,6 +7,12 @@ map, the three histograms and the two counts equal.  The all-ties case runs
 at a smaller shape: its CE is one value repeated at every pixel, the worst
 case for the JAX side's float32 sums (at 4096 pixels they drift 2e-5 from
 log(19) per pixel, which the port's float64 sum keeps).
+
+The bfloat16 cases hand both sides the same bfloat16 activation: the TPU
+kernel rounds the weight to bfloat16 for every product and sums in float32
+with a float32 bias, and so does the port.  The CE agrees within rtol 1e-5
+and the histograms and counts equal the Pallas kernel's; the class map
+equals the argmax of float64 logits of the same bfloat16 values.
 """
 
 import numpy as np
@@ -86,3 +92,32 @@ def test_eval_tail_matches_jax(rng, name):
         np.testing.assert_allclose(ce, np.log(19.0), rtol=1e-6)
     if name in ('all_ignored', 'padded_sample'):
         assert int(valid) == int((seg != 255).sum()) == int(areas[0].sum())
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_eval_tail_bf16_matches_jax(rng, name):
+    y1, wt, bi, seg = _case(rng, name, *((1, 4, 8) if name == 'all_ties' else ()))
+    y1 = jnp.asarray(y1).astype(jnp.bfloat16)
+    _, ce_pallas, hists_pallas, acc_pallas = fused_convt2_eval(
+        to_cols(y1), jnp.asarray(wt), jnp.asarray(bi), group_labels_g16_t(jnp.asarray(seg)),
+        255, 19, interpret=True)
+
+    full = np.asarray(ungroup_2x2(y1).astype(jnp.float32))        # exact bfloat16 values
+    x = torch.tensor(np.ascontiguousarray(full.transpose(0, 3, 1, 2))).to(torch.bfloat16)
+    pred, ce_sum, areas, (correct, valid) = eval_tail(
+        x, torch.from_numpy(wt), torch.from_numpy(bi), torch.from_numpy(seg.astype(np.uint8)), 255)
+    ce = float(ce_sum) / int(valid) if int(valid) else 0.0
+
+    wb = torch.from_numpy(wt).to(torch.bfloat16).double()
+    logits = torch.nn.functional.conv_transpose2d(
+        torch.tensor(full).permute(0, 3, 1, 2).double(), wb, torch.from_numpy(bi).double(),
+        stride=2)
+    assert pred.dtype == torch.uint8 and tuple(pred.shape) == seg.shape
+    if name != 'all_nan':
+        np.testing.assert_array_equal(pred.numpy(), logits.argmax(1).numpy())
+    np.testing.assert_allclose(ce, float(ce_pallas), rtol=1e-5, atol=1e-7)
+    for mine, ref in zip(areas, hists_pallas):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
+    assert (int(correct), int(valid)) == (int(acc_pallas[0]), int(acc_pallas[1]))
+    if name == 'all_nan':
+        assert np.isnan(ce) and int(pred.min()) == int(pred.max()) == 18

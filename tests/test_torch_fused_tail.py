@@ -10,6 +10,21 @@ the port's dX is regrouped before the comparison.  Tolerances: the value
 within 1e-5, the gradients within rtol 1e-5, atol 1e-7
 (tests/test_pallas_tail.py:53-56).  With every pixel ignored the loss and
 every gradient are exactly 0.
+
+The bfloat16 cases hand both sides the same bfloat16 activation.  The TPU
+kernel rounds the weight to bfloat16 for every product and the float32
+dlogits to bfloat16 for the dX and dW products, sums in float32, adds the
+bias and takes db in float32, and rounds dX to bfloat16; the port's plain
+version follows the same rule.  Tolerances: the value within rtol 1e-5;
+dX within one bfloat16 ulp of the JAX value; db within rtol 1e-5, atol
+1e-7; dW within rtol 1e-5, atol 1e-7 except where a dlogit rounds to
+bfloat16 the other way on the two sides.  A dlogit that lies within float32
+noise (another summation order of the logits, another ``exp``) of a
+bfloat16 rounding midpoint does so, and moves the 19 dW entries of its
+(class, position) column by at most one bfloat16 ulp of the largest
+dlogit, 2^-8 times the loss's scale 1/count, times max|x|.  So dW may
+exceed the first bound in at most 2 of the 76 columns, and only by that
+much; this file's seed has one such column (labels_25_40).
 """
 
 import numpy as np
@@ -76,6 +91,44 @@ def test_fused_tail_matches_jax(rng, name):
     dx = _regroup(x.grad.numpy().transpose(0, 2, 3, 1))
     for mine, ref in zip((dx, weight.grad.numpy(), bias.grad.numpy()), grads_j):
         np.testing.assert_allclose(mine, np.asarray(ref), rtol=1e-5, atol=1e-7)
+    if name == 'all_ignored':
+        assert float(loss.detach()) == 0.0
+        for g in (x.grad, weight.grad, bias.grad):
+            assert not bool(g.isnan().any()) and float(g.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_fused_tail_bf16_matches_jax(rng, name):
+    y1, wt, bi, seg = _case(rng, name)
+    y1 = jnp.asarray(y1).astype(jnp.bfloat16)
+    labs_t = group_labels_g16_t(jnp.asarray(seg))
+
+    def jax_loss(y1, wt, bi):
+        return jax_fused_convt2_ce_mean(to_cols(y1), wt, bi, labs_t, 255, interpret=True)
+
+    value_j, grads_j = jax.value_and_grad(jax_loss, argnums=(0, 1, 2))(
+        y1, jnp.asarray(wt), jnp.asarray(bi))
+
+    full = np.asarray(ungroup_2x2(y1).astype(jnp.float32))        # exact bfloat16 values
+    x = torch.tensor(np.ascontiguousarray(full.transpose(0, 3, 1, 2))).to(torch.bfloat16)
+    x.requires_grad_()
+    weight = torch.tensor(wt, requires_grad=True)
+    bias = torch.tensor(bi, requires_grad=True)
+    loss = fused_convt2_ce_mean(x, weight, bias, torch.from_numpy(seg.astype(np.uint8)), 255)
+    loss.backward()
+
+    assert loss.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(float(loss.detach()), float(value_j), rtol=1e-5, atol=1e-7)
+    dx = _regroup(x.grad.float().numpy().transpose(0, 2, 3, 1))
+    dx_j = np.asarray(grads_j[0].astype(jnp.float32))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(dx_j), np.finfo(np.float32).tiny))) - 7)
+    assert np.all(np.abs(dx - dx_j) <= ulp)
+    np.testing.assert_allclose(bias.grad.numpy(), np.asarray(grads_j[2]), rtol=1e-5, atol=1e-7)
+    dw, dw_j = weight.grad.numpy(), np.asarray(grads_j[1])
+    diff, allowed = np.abs(dw - dw_j), 1e-5 * np.abs(dw_j) + 1e-7
+    flip = 2.0 ** -8 / max(int((seg != 255).sum()), 1) * float(np.abs(full).max())
+    assert np.all(diff <= allowed + flip)
+    assert int((diff > allowed).any(axis=0).sum()) <= 2        # (class, kh, kw) columns
     if name == 'all_ignored':
         assert float(loss.detach()) == 0.0
         for g in (x.grad, weight.grad, bias.grad):

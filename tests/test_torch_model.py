@@ -145,3 +145,34 @@ def test_fa_feed_equals_the_full_resolution_path():
     for got, ref in ((sssr_t, sssr_t_full), (sisr_t, sisr_t_full)):
         assert got.shape == ref.shape == (2, 1, HW[0] // 4, HW[1] // 4)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_fa_corner_under_autocast_adds_the_bias_in_bf16(rng):
+    """Under bfloat16 autocast the FA corner is the JAX package's
+    ``conv_transpose_2x2_stride2_corner`` of a bfloat16 activation: the
+    product rounded to bfloat16, then the bias rounded to bfloat16 and added
+    in bfloat16.  Within one bfloat16 ulp of the product plus one of the
+    result (float32 sums in another order can round the product the other
+    way)."""
+    from dualsuperreslearningforsemseg_tpu.ops.conv import conv_transpose_2x2_stride2_corner
+    y = jnp.asarray(rng.standard_normal((2, 8, 12, 19)).astype(np.float32)).astype(jnp.bfloat16)
+    wt = (rng.standard_normal((19, 19, 2, 2)) * 0.2).astype(np.float32)
+    bi = rng.standard_normal((19,)).astype(np.float32)
+    ref = conv_transpose_2x2_stride2_corner(y[:, ::4, ::4], jnp.asarray(wt), jnp.asarray(bi))
+    ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 3, 1, 2)
+
+    decoder = DSRL(num_classes=19, backbone_layers=LAYERS).SSSR_decoder
+    tail = decoder.upsample16_pred[6]
+    with torch.no_grad():
+        tail.weight.copy_(torch.from_numpy(wt))
+        tail.bias.copy_(torch.from_numpy(bi))
+    x = torch.from_numpy(np.asarray(y.astype(jnp.float32)).transpose(0, 3, 1, 2).copy())
+    with torch.no_grad(), torch.autocast('cpu', dtype=torch.bfloat16):
+        got = decoder.fa_corner(x.to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+
+    def ulp(v):
+        return np.exp2(np.floor(np.log2(np.maximum(np.abs(v), np.finfo(np.float32).tiny))) - 7)
+
+    product = ref - bi.astype(jnp.bfloat16).astype(np.float32).reshape(1, -1, 1, 1)
+    assert np.all(np.abs(got.float().numpy() - ref) <= ulp(ref) + ulp(product))

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port that hold on any machine.
 
-* No module of the port, and no line of ``chip_smoke.py``, imports JAX,
+* No module of the port, and no line of ``chip_smoke.py`` or
+  ``tail_variants.py``, imports JAX,
   Flax or the JAX package (an AST scan of every import).
 * The entry points run on ``cuda`` unless asked for the CPU: without a card
   ``benchmark`` and ``train`` raise instead of falling back.
@@ -38,7 +39,8 @@ def _imported_modules(path):
 
 def test_port_imports_nothing_of_jax():
     files = glob.glob(os.path.join(REPO, 'dualsuperreslearningforsemseg_tpu_torch', '**', '*.py'),
-                      recursive=True) + [os.path.join(REPO, 'chip_smoke.py')]
+                      recursive=True) + [os.path.join(REPO, f) for f in ('chip_smoke.py',
+                                                                         'tail_variants.py')]
     assert len(files) > 20
     bad = [(os.path.relpath(f, REPO), name) for f in files for name in _imported_modules(f)
            if name.split('.')[0] in FORBIDDEN]

@@ -10,7 +10,9 @@ weights the JAX CAUTION line is printed and the backbone init is kept.
 It writes ``<experiment>/weights/stage1/final.weights``, which the JAX
 package loads (``load_checkpoint_or_weights`` + ``load_state_dict(strict=
 True)``) with the same key set and shapes as its own stage-1 model; the
-losses it returns are finite.  The ``train`` flags the port does not have
+losses it returns are finite.  With ``--mixed-precision O1`` the train
+step hands K1 and the validation step hands K3 a bfloat16 activation, as
+the JAX package trains and validates its bfloat16 model.  The ``train`` flags the port does not have
 yet exit with the "not ported yet" error naming the ROADMAP queue, before
 any work, at every stage.
 """
@@ -20,6 +22,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from dualsuperreslearningforsemseg_tpu import settings as jax_settings
 from dualsuperreslearningforsemseg_tpu.checkpoint import load_checkpoint_or_weights
@@ -27,6 +30,7 @@ from dualsuperreslearningforsemseg_tpu.models import (
     DSRL as JaxDSRL, init_model_host, load_state_dict, state_dict)
 from dualsuperreslearningforsemseg_tpu_torch.__main__ import main
 from dualsuperreslearningforsemseg_tpu_torch.data import make_synthetic_cityscapes_tree
+from dualsuperreslearningforsemseg_tpu_torch.train import steps
 
 ARGS = ['train', '--device', 'cpu', '--epochs', '1', '--batch-size', '2', '--num-workers', '0',
         '--dataset', 'cityscapes', '--val-interval', '1']
@@ -62,6 +66,27 @@ def test_train_writes_weights_the_jax_package_loads(workdir):
     np.testing.assert_array_equal(
         np.asarray(loaded['params']['SSSR_decoder']['upsample16_pred.6']['bias']),
         mine['SSSR_decoder.upsample16_pred.6.bias'])
+
+
+def test_mixed_precision_trains_and_validates_in_bf16(workdir, monkeypatch):
+    seen = {'K1': [], 'K3': []}
+    k1, k3 = steps.fused_convt2_ce_mean, steps.eval_tail
+
+    def spy_k1(x, *args):
+        seen['K1'].append(x.dtype)
+        return k1(x, *args)
+
+    def spy_k3(x, *args):
+        seen['K3'].append(x.dtype)
+        return k3(x, *args)
+
+    monkeypatch.setattr(steps, 'fused_convt2_ce_mean', spy_k1)
+    monkeypatch.setattr(steps, 'eval_tail', spy_k3)
+    res = main(ARGS + ['--stage', '1', '--mixed-precision', 'O1', '--experiment-id', 'bf16'])
+    assert seen == {'K1': [torch.bfloat16] * 2, 'K3': [torch.bfloat16] * 2}
+    assert all(math.isfinite(v) for v in res['train_losses'][0].values())
+    assert math.isfinite(res['val']['CE']) and 0 <= res['val']['mIoU'] <= 100
+    assert load_checkpoint_or_weights(res['final_weights'])['mixed_precision'] == 'O1'
 
 
 @pytest.mark.parametrize('extra', [['--stage', '2', '--profile'], ['--stage', '3', '--debug-nans'],
