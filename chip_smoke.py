@@ -10,8 +10,10 @@ nothing of JAX.  Phases, each fatal on failure:
 1. build: compiles every CUDA kernel of the port from ``csrc/`` (one nvcc
    per source, all started together) into ``build/kernels/``, prints the
    ``-Xptxas -v`` reports and, where ``cuobjdump`` is present, the count of
-   tensor-core instructions (``HMMA``) and asynchronous copies (``LDGSTS``)
-   in each library;
+   tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from wgmma)
+   and asynchronous copies (``LDGSTS``) in each kernel function, beside its
+   registers, shared memory and spills; the K1 forward kernel must have
+   tensor-core instructions;
 2. K3: the eval-tail kernel against its plain PyTorch version on the card
    at the benchmark's shape, x (16, 19, 256, 512), float32 with TF32 off and
    bfloat16: (a) inputs whose logits are exact in float32 (every product and
@@ -28,9 +30,12 @@ nothing of JAX.  Phases, each fatal on failure:
    the value within rel 1e-5 and an equal count; per element |d| <= rtol *
    (|plain| + max|plain|) with rtol 1e-5 for dX and 1e-4 for dW and db (sums
    over 4.2 M pixels in another order); a bfloat16 dX within one bfloat16
-   ulp of the plain value plus 1e-5 * max|plain|.  Two backward launches
-   must give bit-identical gradients.  Forward, backward and the plain
-   forward + backward are timed with CUDA events, the kernels in both dtypes;
+   ulp of the plain value plus 1e-5 * max|plain|.  Two forward launches
+   must give bit-identical sums and counts, two backward launches
+   bit-identical gradients; at (3, 97, 201) with every pixel ignored the
+   forward gives a CE sum of 0 and a count of 0.  Forward, backward and
+   the plain forward + backward are timed with CUDA events, the kernels in
+   both dtypes (a wrapper call, and replayed from a CUDA graph);
 4. K2: the photometric kernel against its plain version at (8, 512, 1024, 3)
    uint8, per-sample taps and matrices, half of them identity taps, whose
    float32 output must be bit-exact; float32 within atol 1e-6, bfloat16
@@ -63,8 +68,9 @@ nothing of JAX.  Phases, each fatal on failure:
    plain tail on copies of one model (dropout off, BatchNorm frozen): losses
    within rel 1e-5, the updates SGD applied (lr * its momentum buffer after
    one step) within 1e-4 of the largest update; then a warm float32 step at
-   batch 8 and its parts timed with CUDA events, and one bfloat16
-   (``--mixed-precision O1``) step;
+   batch 8 and its parts timed with CUDA events, the step again without
+   cuDNN's deterministic algorithms and once more with them, and one
+   bfloat16 (``--mixed-precision O1``) step;
 9. cascade: ``train --stage 2`` and then ``--stage 3`` in the same
    experiment, at full depth, counts reset before each run and read after:
    K1 forward and backward and K2 (unshuffling) 3 each, K3 5, and at stage 3
@@ -308,10 +314,12 @@ def k1_compare(x, weight, bias, labels):
         fused_convt2_ce_mean, fused_convt2_ce_mean_plain)
     bf16 = x.dtype == torch.bfloat16
     ce_k, cnt_k = fused_tail_forward(x, weight, bias, labels)
+    ce_k2, cnt_k2 = fused_tail_forward(x, weight, bias, labels)
     one = torch.ones((), device='cuda')
     dx_k, dw_k, db_k = fused_tail_backward(x, weight, bias, labels, one)
     dx_k2, dw_k2, db_k2 = fused_tail_backward(x, weight, bias, labels, one)
     torch.cuda.synchronize()
+    fwd_identical = torch.equal(ce_k, ce_k2) and torch.equal(cnt_k, cnt_k2)
     identical = all(torch.equal(a, b) for a, b in ((dx_k, dx_k2), (dw_k, dw_k2), (db_k, db_k2)))
     xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, weight, bias))
     ce_p, cnt_p = fused_convt2_ce_sum_plain(xr, wr, br, labels)
@@ -320,9 +328,12 @@ def k1_compare(x, weight, bias, labels):
     rel = abs(float(ce_k) - float(ce_p)) / max(abs(float(ce_p)), 1e-30)
     out = {'dtype': str(x.dtype), 'shape': tuple(x.shape), 'ce_sum_kernel': float(ce_k),
            'ce_sum_plain': float(ce_p), 'ce_rel_err': rel, 'count_kernel': int(cnt_k),
-           'count_plain': int(cnt_p), 'bit_identical_rerun': identical}
+           'count_plain': int(cnt_p), 'forward_bit_identical_rerun': fwd_identical,
+           'bit_identical_rerun': identical}
     if not rel <= 1e-5 or int(cnt_k) != int(cnt_p):
         fail("K1 forward differs from the plain version: {}".format(out))
+    if not fwd_identical:
+        fail("K1 forward is not bit-identical across two launches: {}".format(out))
     if not identical:
         fail("K1 backward is not bit-identical across two launches: {}".format(out))
     # bfloat16: a dlogit (|d| <= 1 for the CE sum) rounded the other way
@@ -352,6 +363,13 @@ def k1_phase():
     for dtype in (torch.float32, torch.bfloat16):
         k1_compare(*k1_case(gen, 1, 8, 40, dtype))        # ragged last tile, rows crossed
         k1_compare(*k1_case(gen, 3, 97, 201, dtype))      # ragged, odd width, more tiles than blocks
+        x, weight, bias, labels = k1_case(gen, 3, 97, 201, dtype)
+        labels.fill_(255)                                 # every pixel ignored
+        ce, cnt = fused_tail_forward(x, weight, bias, labels)
+        print("K1 forward, every pixel ignored, {}: CE sum {}, count {}".format(dtype, float(ce), int(cnt)),
+              flush=True)
+        if float(ce) != 0.0 or int(cnt) != 0:
+            fail("K1 forward with every pixel ignored gave CE {} and count {}".format(float(ce), int(cnt)))
     cases = {torch.float32: k1_case(gen, 8, 256, 512, torch.float32)}
     f32 = k1_compare(*cases[torch.float32])
     cases[torch.bfloat16] = k1_case(gen, 8, 256, 512, torch.bfloat16)
@@ -364,6 +382,8 @@ def k1_phase():
     for dtype, (x, weight, bias, labels) in cases.items():
         fwd_ms = cuda_ms(lambda: fused_tail_forward(x, weight, bias, labels), iters=20)
         bwd_ms = cuda_ms(lambda: fused_tail_backward(x, weight, bias, labels, one), iters=20)
+        fwd_graph_ms = graph_ms(lambda: fused_tail_forward(x, weight, bias, labels))
+        bwd_graph_ms = graph_ms(lambda: fused_tail_backward(x, weight, bias, labels, one))
 
         def plain_fwd():
             with torch.no_grad():
@@ -387,11 +407,12 @@ def k1_phase():
                      f32['dX']['max_abs'], bwd_ms, plain_fwd_bwd_ms,
                      2 * xb + labels.numel() + 2 * params + 4, *tail_work(out_pixels, 3, 9)[::-1],
                      dtype=dtype)
-        for r, what in ((fwd, 'plain forward'), (bwd, 'plain forward+backward')):
-            print("{} at x {} {}: kernel {:.4f} ms, {} {:.3f} ms, bound {:.4f} ms ({}), {:.1f} % of "
-                  "the bound".format(r['name'], tuple(x.shape), dtype, r['ms'], what, r['plain_ms'],
-                                     r['bound_ms'], r['bound_by'], 100 * r['bound_ms'] / r['ms']),
-                  flush=True)
+        for r, what, graph in ((fwd, 'plain forward', fwd_graph_ms),
+                               (bwd, 'plain forward+backward', bwd_graph_ms)):
+            print("{} at x {} {}: kernel {:.4f} ms a wrapper call, {:.4f} ms replayed from a CUDA graph, "
+                  "{} {:.3f} ms, bound {:.4f} ms ({}), {:.1f} % of the bound".format(
+                      r['name'], tuple(x.shape), dtype, r['ms'], graph, what, r['plain_ms'],
+                      r['bound_ms'], r['bound_by'], 100 * r['bound_ms'] / r['ms']), flush=True)
         if not records:
             records = [fwd, bwd]
     return records
@@ -1024,6 +1045,12 @@ def train_step_phase(device_name, weights, stage):
         step(imgs_w, segs_w, lr, gen)
 
     times['step_ms'] = cuda_ms(whole_step, iters=5, warmup=1)
+    # The cost of cuDNN's deterministic algorithms (select_device sets them):
+    # the same step without them, then with them again.
+    torch.backends.cudnn.deterministic = False
+    times['step_ms_cudnn_nondeterministic'] = cuda_ms(whole_step, iters=5, warmup=2)
+    torch.backends.cudnn.deterministic = True
+    times['step_ms_again'] = cuda_ms(whole_step, iters=5, warmup=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     whole_step()
@@ -1073,19 +1100,70 @@ def train_step_phase(device_name, weights, stage):
     return times
 
 
+def ptxas_report(log):
+    """{mangled kernel name: 'N registers, B bytes smem, S bytes spill
+    stores/loads'} from an ``-Xptxas -v`` log."""
+    import re
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report.setdefault(name, {})['spills'] = '{}/{} bytes spill stores/loads'.format(*m.groups())
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            report.setdefault(name, {})['used'] = '{} registers, {} bytes static smem'.format(
+                m.group(1), m.group(2) or 0)
+    return {k: ', '.join(v[f] for f in ('used', 'spills') if f in v) for k, v in report.items()}
+
+
+def demangle(names):
+    tool = shutil.which('c++filt')
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input='\n'.join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
 def sass_counts(libs):
-    """Counts of tensor-core (HMMA) and asynchronous-copy (LDGSTS)
-    instructions in each library's SASS, where cuobjdump is present."""
+    """Counts of tensor-core (``HMMA``: mma.sync; ``HGMMA``: wgmma) and
+    asynchronous-copy (``LDGSTS``) instructions in each kernel function's
+    SASS (cuobjdump prints them function by function), with the function's
+    ``-Xptxas -v`` registers, shared memory and spills beside them.  Fails
+    if the K1 forward kernel has no tensor-core instruction."""
     cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
     tool = os.path.join(cuda_home, 'bin', 'cuobjdump')
     tool = tool if os.path.isfile(tool) else shutil.which('cuobjdump')
     if not tool:
         print("cuobjdump not found: no SASS counts", flush=True)
         return
-    for name, path in sorted(libs.items()):
+    for lib, path in sorted(libs.items()):
+        with open(path + '.log') as f:
+            ptxas = ptxas_report(f.read())
         sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, timeout=120).stdout
-        print("SASS of {}: {} HMMA, {} LDGSTS".format(name, sass.count('HMMA'), sass.count('LDGSTS')),
-              flush=True)
+        functions = {}
+        name = None
+        for line in sass.splitlines():
+            if 'Function : ' in line:
+                name = line.split('Function : ', 1)[1].strip()
+                functions[name] = {'HMMA': 0, 'HGMMA': 0, 'LDGSTS': 0}
+            elif name:
+                for op in ('HGMMA', 'HMMA', 'LDGSTS'):
+                    if op + '.' in line or op + ' ' in line:
+                        functions[name][op] += 1
+                        break
+        readable = demangle(sorted(functions))
+        for fn, n in sorted(functions.items()):
+            print("SASS of {} {}: {} HMMA, {} HGMMA, {} LDGSTS; ptxas: {}".format(
+                lib, readable[fn], n['HMMA'], n['HGMMA'], n['LDGSTS'], ptxas.get(fn, 'not reported')),
+                flush=True)
+        if lib == 'fused_tail':
+            fwd = [n for fn, n in functions.items() if 'fused_tail_fwd_kernel' in fn]
+            if not fwd or not all(n['HMMA'] + n['HGMMA'] for n in fwd):
+                fail("the K1 forward kernel has no tensor-core instruction: {}".format(fwd))
 
 
 def main():

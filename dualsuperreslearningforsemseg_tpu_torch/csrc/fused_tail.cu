@@ -11,11 +11,28 @@
 // for every product, sums are float32 and the bias float32.
 //
 // Forward: (ce_sum, count) = (sum of the NLL over valid output pixels,
-// number of valid output pixels).  One thread per pre-tail pixel (b, h, w),
-// consecutive threads along w (coalesced channel loads), the 4 x C logits in
-// registers on the CUDA cores (`tail_logits`); each block writes its CE sum
-// (float64) and count to its own slot and a one-block pass sums the slots
-// in a fixed order, so the result is the same from run to run.
+// number of valid output pixels), built around Hopper's asynchronous
+// warpgroup products.  A persistent grid, one block an SM of 5 (float32 x)
+// or 6 (bfloat16 x) warpgroups (`FwdShape`: as many as the registers
+// allow), walks tiles of 64 consecutive pre-tail pixels, warpgroup i taking
+// tiles i, i + all warpgroups, ...  Each warp of a warpgroup owns 16 pixels
+// of its tiles: it loads their (C, 16) slab with cp.async two tiles ahead
+// into a ring of two buffers, and their labels one tile ahead into
+// registers (lanes l and l + 16 hold pixel l; shuffled to the lanes that
+// need them).  The logits (64 x 80) = X^T . W of a tile are one chain of
+// `wgmma.mma_async` (m64n80k8 TF32, 3 k steps x 3 passes for float32 x;
+// m64n80k16 bfloat16, 2 k steps for bfloat16 x), A from registers (the
+// warp's hi/lo or packed fragments of its slab), B from the split or
+// rounded weight table in shared memory, built once a block, read through
+// a matrix descriptor.  While a tile's products run the warpgroup starts
+// its next loads; then each lane adds the bias to its two output pixels
+// and takes their CE with the shared helpers (`row_max`, `exp_sum`,
+// `picked_logit`, `ce_nll`), summed in float64, while the other
+// warpgroups' products run.  (Two accumulator sets, to run the next
+// tile's products under this tile's CE, need 80 accumulator registers a
+// thread and leave room for 3 warpgroups: slower, PERF.md.)  Each block
+// writes its CE sum and count to its own slot and a one-block pass sums
+// the slots in a fixed order, so the result is the same from run to run.
 //
 // Backward, given `scale` = the cotangent of ce_sum as a device scalar (no
 // host sync): per output pixel dlogits = (softmax - onehot) * scale * valid
@@ -57,14 +74,16 @@
 // Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 and 989 bf16 on the
 // tensor cores; 67 TFLOP/s FP32 off them) at the stage-1 recipe (x
 // 8x19x256x512 float32, 4.19 M output pixels):
-//   forward: reads x (79.7 MB) and the labels (4.2 MB): 25 us; its CUDA-core
-//     design counts 4.19 M x (2*19*19 + 6*19) = 3.5 GOP of FP32: 52 us.
+//   forward: reads x (79.7 MB) and the labels (4.2 MB): 25 us; the 19x19
+//     products are 3.03 GFLOP, three TF32 passes at 495 TFLOP/s: 18 us (a
+//     bfloat16 x: 42 MB, 13 us, one pass 3 us); the softmax and pick (~6 x
+//     19 operations per output pixel) 0.48 GOP of FP32: 7 us.
 //   backward: reads x and the labels, writes dX: 163.6 MB, 49 us; the three
 //     19x19 products are 9.08 GFLOP, three TF32 passes at 495 TFLOP/s: 55 us
 //     (one bfloat16 pass at 989: 9 us, and half the bytes); the softmax and
 //     dlogits (~9 x 19 operations per output pixel) 0.72 GOP of FP32: 11 us.
-// So the float32 backward is bound by its 3xTF32 products, the bfloat16 one
-// by its bytes.
+// So the forward is bound by its bytes, the float32 backward by its 3xTF32
+// products and the bfloat16 one by its bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,18 +102,17 @@ using dsrl_tail::kWarpP;
 using dsrl_tail::kWarps;
 using dsrl_tail::from_float;
 using dsrl_tail::to_float;
-constexpr int kFwdThreads = 256;
-constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kRows = kC + 1;                   // dW's channels and db
 constexpr int kCols = kN;                       // (output position, class)
 constexpr int kSWT = 24;                        // dX's B table row stride (words)
 constexpr int kSL = 88;                         // dlogits row stride (floats): conflict-free loads
 constexpr int kWarpL = kWarpP * kSL;            // a warp's dlogits
 constexpr int kFinalThreads = 1024;
+constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;   // a warp's (C, 16) slab
 
 // Shared memory of the backward kernel, in bytes (each part a multiple of 16).
 template <typename T> struct BwdSmem {
-  static constexpr int kX = kWarps * 2 * kC * dsrl_tail::kSlabStride * (int)sizeof(T);   // two slabs a warp
+  static constexpr int kX = kWarps * 2 * kSlabElems * (int)sizeof(T);   // two slabs a warp
   static constexpr int kL = kWarps * kWarpL * 4;              // each warp's dlogits
   static constexpr int kW = dsrl_tail::b_table_words<T>(dsrl_tail::LogitsK<T>::kPad, dsrl_tail::kSW) * 4;
   static constexpr int kWT = dsrl_tail::b_table_words<T>(kNPad, kSWT) * 4;   // W^T for dX
@@ -105,66 +123,49 @@ template <typename T> struct BwdSmem {
   static constexpr int kBytes = kX + kL + kW + kWT + kB + kLab + kOff + kDb;
 };
 
-// Where pre-tail pixel p lives: its sample, its offset in a channel plane,
-// and the first label byte of its 2x2 output block.
-struct Pixel {
-  long long b, rem, out0;
+// The forward's block: one a SM, of as many warpgroups as the registers
+// allow (float32 x: 5 at 96 registers a thread; bfloat16 x, whose A
+// fragments take 8 registers instead of 24: 6 at 80).  While one
+// warpgroup waits for its products, the others take their CE.
+template <typename T> struct FwdShape {
+  static constexpr int kWG = sizeof(T) == 4 ? 5 : 6;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kWarps = 4 * kWG;
 };
 
-__device__ __forceinline__ Pixel locate(long long p, int height, int width) {
-  const long long hw = (long long)height * width;
-  Pixel px;
-  px.b = p / hw;
-  px.rem = p - px.b * hw;
-  const long long h = px.rem / width, w = px.rem - h * width;
-  px.out0 = px.b * 4 * hw + 2 * h * (2LL * width) + 2 * w;
-  return px;
+// Shared memory of the forward kernel, in bytes: the wgmma B table first
+// (its descriptors want 16-byte alignment), the bias, two slabs a warp.
+template <typename T> struct FwdSmem {
+  static constexpr int kW = dsrl_tail::WgTable<T>::kBytes;
+  static constexpr int kB = 80;
+  static constexpr int kX = FwdShape<T>::kWarps * 2 * kSlabElems * (int)sizeof(T);
+  static constexpr int kBytes = kW + kB + kX;
+};
+
+// Adds the CE of this lane's output pixel of row `Half` (output position t
+// of a pre-tail pixel whose four labels are `labels4`) to ce and n_valid.
+// Branch-free: the CE is taken for every pixel and added where it is valid
+// (adding 0.0 leaves the sum's bits as skipping would), so a lane's two
+// pixels interleave.
+template <int Half>
+__device__ __forceinline__ void add_ce(float (&acc)[dsrl_tail::kNT][4], const float* s_b, uint32_t labels4,
+                                       int t, bool active, int ignore_label, double& ce, int& n_valid) {
+  const int lab = (labels4 >> (8 * t)) & 0xff;
+  const bool valid = active && lab != ignore_label;
+  const dsrl_tail::LaneRow<Half> l = dsrl_tail::lane_logits<Half>(acc, s_b);
+  const float picked = dsrl_tail::picked_logit(l, lab), m = dsrl_tail::row_max(l);
+  const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);
+  ce += valid ? (double)nll : 0.0;
+  n_valid += valid;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads)
-fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
-                      const float* __restrict__ bias, const uint8_t* __restrict__ labels,
-                      double* __restrict__ ce_partials, long long* __restrict__ cnt_partials,
-                      int height, int width, long long npix, int ignore_label) {
-  __shared__ dsrl_tail::TailParams s_p;
-  __shared__ double s_ce[kFwdWarps];
-  __shared__ int s_cnt[kFwdWarps];
-  dsrl_tail::load_tail_params(s_p, weight, bias, sizeof(T) == 2);
-  __syncthreads();
-
-  const long long p = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
-  const bool active = p < npix;
-  const Pixel px = locate(active ? p : 0, height, width);
-  const long long hw = (long long)height * width;
-  const long long out_w = 2LL * width;
-
-  float xv[kC];
-  {
-    const T* xp = x + px.b * kC * hw + px.rem;
-#pragma unroll
-    for (int ci = 0; ci < kC; ++ci) xv[ci] = active ? to_float(xp[ci * hw]) : 0.f;
-  }
-  float ce = 0.f;
-  int n_valid = 0;
-#pragma unroll
-  for (int kh = 0; kh < 2; ++kh) {
-    uchar2 lab2 = make_uchar2(0, 0);
-    if (active) lab2 = *reinterpret_cast<const uchar2*>(labels + px.out0 + kh * out_w);
-#pragma unroll
-    for (int kw = 0; kw < 2; ++kw) {
-      const int lab = kw ? lab2.y : lab2.x;
-      float l[kC];
-      dsrl_tail::tail_logits(xv, s_p, kh * 2 + kw, l);
-      const bool valid = active && lab != ignore_label;
-      if (valid) {
-        const float picked = dsrl_tail::picked_logit(l, lab), m = dsrl_tail::row_max(l);
-        ce += dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);
-      }
-      n_valid += valid;
-    }
-  }
-  const double ce_w = dsrl_tail::warp_sum((double)ce);
+// Sums a block's per-thread CE and counts in a fixed order into its slot.
+template <int kBlockWarps>
+__device__ __forceinline__ void block_partial(double ce, int n_valid, double* __restrict__ ce_partials,
+                                              long long* __restrict__ cnt_partials) {
+  __shared__ double s_ce[kBlockWarps];
+  __shared__ int s_cnt[kBlockWarps];
+  const double ce_w = dsrl_tail::warp_sum(ce);
   const int valid_w = dsrl_tail::warp_sum(n_valid);
   if ((threadIdx.x & 31) == 0) {
     s_ce[threadIdx.x >> 5] = ce_w;
@@ -175,13 +176,135 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
     double t = 0.0;
     long long n = 0;
 #pragma unroll
-    for (int i = 0; i < kFwdWarps; ++i) {
+    for (int i = 0; i < kBlockWarps; ++i) {
       t += s_ce[i];
       n += s_cnt[i];
     }
     ce_partials[blockIdx.x] = t;
     cnt_partials[blockIdx.x] = n;
   }
+}
+
+// A warp's walk over its warpgroup's tiles (the forward).
+template <typename T> struct FwdWalk {
+  const T* x;
+  const uint8_t* labels;
+  T* s_x;                    // the warp's two slabs
+  const float* s_b;
+  long long tile, ntiles, groups, p0, npix;
+  dsrl_tail::PixelPos pos;   // of p0
+  unsigned hw, stride;       // stride: pixels from one of the warpgroup's tiles to the next
+  int width, ignore_label, lane, it;
+  uint32_t labels4;          // lane l: the four labels of pixel p0 + l % 16 of this tile
+  double ce;
+  int n_valid;
+};
+
+// Starts loading this warp's slab of the tile `ahead` tiles after w.tile.
+template <typename T>
+__device__ __forceinline__ void load_slab(const FwdWalk<T>& w, T* slab, unsigned ahead) {
+  const long long p0 = w.p0 + (long long)ahead * w.stride;
+  const dsrl_tail::PixelPos pos = dsrl_tail::advance(w.pos, ahead * w.stride, w.hw);
+  if (!dsrl_tail::load_x_part_whole<T>(slab, w.x, p0, pos, w.npix, w.hw, w.lane))
+    dsrl_tail::load_x_part<T>(slab, w.x, p0, pos, w.npix, w.hw, w.lane);
+}
+
+// One step of the walk: the slab of tile `w.tile` has been requested two
+// steps before.  Issues the tile's products, starts loading the slab two
+// tiles ahead into the buffer just read and the next tile's labels while
+// the tensor cores run, waits for the products and takes the CE.  The tile
+// indices are warpgroup-uniform (derived from a shuffled warp index) and
+// no wgmma sits in a branch, so ptxas keeps them asynchronous.  Returns
+// whether a next tile exists.
+template <typename T>
+__device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, float (&acc)[dsrl_tail::kNT][4],
+                                         uint64_t desc) {
+  const bool more = w.tile + w.groups < w.ntiles;
+  T* slab = w.s_x + (w.it & 1) * kSlabElems;
+  dsrl_tail::cp_async_wait<1>();
+  __syncwarp();      // this tile's slab has landed
+  dsrl_tail::load_wg_a<T>(slab, w.lane, a);
+  __syncwarp();      // every lane has read it
+  dsrl_tail::wg_fence();
+  dsrl_tail::issue_logits_wgmma<T>(acc, a, desc);
+  dsrl_tail::wg_commit();
+  dsrl_tail::wg_fence_acc(acc);
+  if (w.tile + 2 * w.groups < w.ntiles) load_slab(w, slab, 2);
+  dsrl_tail::cp_async_commit();
+  const int pl = w.lane & (kWarpP - 1);
+  const uint32_t labels_next =
+      dsrl_tail::pixel_info(w.labels, w.p0 + w.stride + pl, dsrl_tail::advance(w.pos, w.stride + pl, w.hw),
+                            w.npix, w.width, w.hw).labels4;
+  const int g = w.lane >> 2, t = w.lane & 3;
+  const uint32_t lab0 = __shfl_sync(0xffffffffu, w.labels4, g);
+  const uint32_t lab1 = __shfl_sync(0xffffffffu, w.labels4, g + 8);
+  dsrl_tail::wg_wait<0>();
+  dsrl_tail::wg_fence_acc(acc);
+  add_ce<0>(acc, w.s_b, lab0, t, w.p0 + g < w.npix, w.ignore_label, w.ce, w.n_valid);
+  add_ce<1>(acc, w.s_b, lab1, t, w.p0 + g + 8 < w.npix, w.ignore_label, w.ce, w.n_valid);
+  w.labels4 = labels_next;
+  w.tile += w.groups;
+  w.p0 += w.stride;
+  w.pos = dsrl_tail::advance(w.pos, w.stride, w.hw);
+  ++w.it;
+  return more;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FwdShape<T>::kThreads, 1)
+fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                      const float* __restrict__ bias, const uint8_t* __restrict__ labels,
+                      double* __restrict__ ce_partials, long long* __restrict__ cnt_partials,
+                      int height, int width, long long npix, int ignore_label) {
+  using S = FwdSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  // Shuffled from lane 0, so the compiler sees it uniform over the warp.
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem);
+  float* s_b = reinterpret_cast<float*>(smem + S::kW);
+  dsrl_tail::load_wg_weights<T>(s_wb, s_b, weight, bias);
+  dsrl_tail::wg_fence_proxy();
+  __syncthreads();   // the weights
+
+  FwdWalk<T> w;
+  w.x = x;
+  w.labels = labels;
+  w.s_x = reinterpret_cast<T*>(smem + S::kW + S::kB) + warp * 2 * kSlabElems;
+  w.s_b = s_b;
+  w.hw = (unsigned)height * (unsigned)width;
+  w.ntiles = (npix + dsrl_tail::kWgM - 1) / dsrl_tail::kWgM;
+  w.groups = (long long)gridDim.x * FwdShape<T>::kWG;
+  w.stride = (unsigned)w.groups * dsrl_tail::kWgM;
+  w.tile = (long long)blockIdx.x * FwdShape<T>::kWG + warp / 4;
+  w.npix = npix;
+  w.width = width;
+  w.ignore_label = ignore_label;
+  w.lane = lane;
+  w.it = 0;
+  w.ce = 0.0;
+  w.n_valid = 0;
+  if (w.tile < w.ntiles) {   // uniform over the warpgroup
+    // The slabs of the first two tiles in flight, the first tile's labels.
+    w.p0 = w.tile * dsrl_tail::kWgM + (warp % 4) * kWarpP;
+    w.pos = dsrl_tail::pixel_pos(w.p0, w.hw);
+    load_slab(w, w.s_x, 0);
+    dsrl_tail::cp_async_commit();
+    if (w.tile + w.groups < w.ntiles) load_slab(w, w.s_x + kSlabElems, 1);
+    dsrl_tail::cp_async_commit();
+    w.labels4 = dsrl_tail::pixel_info(labels, w.p0 + (lane & (kWarpP - 1)),
+                                      dsrl_tail::advance(w.pos, lane & (kWarpP - 1), w.hw), npix, width,
+                                      w.hw).labels4;
+    // A's fragments and the accumulators live across the steps: as locals
+    // of a step the float32 kernel spills (measured).
+    dsrl_tail::WgA<T> a;
+    float acc[dsrl_tail::kNT][4];
+    const uint64_t desc = dsrl_tail::wg_desc(s_wb);
+    while (fwd_step<T>(w, a, acc, desc)) {
+    }
+  }
+  dsrl_tail::cp_async_wait<0>();
+  block_partial<FwdShape<T>::kWarps>(w.ce, w.n_valid, ce_partials, cnt_partials);
 }
 
 // One block: sums the forward's per-block partials in a fixed order.
@@ -352,7 +475,6 @@ fused_tail_bwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
                       double* __restrict__ partials, int height, int width, long long npix,
                       int ignore_label) {
   using S = BwdSmem<T>;
-  constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -502,42 +624,56 @@ bwd_sum_kernel(const double* __restrict__ partials, int nblocks, float* __restri
   }
 }
 
-template <typename T>
-int launch_fwd(const void* x, const float* weight, const float* bias, const uint8_t* labels,
-               double* ce_partials, long long* cnt_partials, double* ce_sum, long long* count,
-               int batch, int height, int width, int ignore_label, cudaStream_t s) {
-  const long long npix = (long long)batch * height * width;
-  const long long blocks = (npix + kFwdThreads - 1) / kFwdThreads;
-  fused_tail_fwd_kernel<T><<<(unsigned)blocks, kFwdThreads, 0, s>>>(
-      static_cast<const T*>(x), weight, bias, labels, ce_partials, cnt_partials, height, width,
-      npix, ignore_label);
-  cudaError_t err = cudaGetLastError();
+// The persistent grid of a tile kernel: the SM count times the blocks the
+// occupancy allows per SM, at most `blocks_needed`.
+template <typename K>
+int persistent_grid(K kernel, int threads, int smem, long long blocks_needed, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_sum_kernel<<<1, kFinalThreads, 0, s>>>(ce_partials, cnt_partials, blocks, ce_sum, count);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int bwd_grid(long long npix, int* grid) {
-  const int smem = BwdSmem<T>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(fused_tail_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fused_tail_bwd_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_bwd_kernel<T>,
-                                                           kThreads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long ntiles = (npix + kTileP - 1) / kTileP;
   const long long full = (long long)sms * per_sm;
-  *grid = (int)(ntiles < full ? ntiles : full);
+  *grid = (int)(blocks_needed < full ? blocks_needed : full);
   return 0;
+}
+
+template <typename T>
+int fwd_grid(long long npix, int* grid) {
+  const long long tiles = (npix + dsrl_tail::kWgM - 1) / dsrl_tail::kWgM;
+  return persistent_grid(fused_tail_fwd_kernel<T>, FwdShape<T>::kThreads, FwdSmem<T>::kBytes,
+                         (tiles + FwdShape<T>::kWG - 1) / FwdShape<T>::kWG, grid);
+}
+
+template <typename T>
+int launch_fwd(const void* x, const float* weight, const float* bias, const uint8_t* labels,
+               double* ce_partials, long long* cnt_partials, int grid, double* ce_sum, long long* count,
+               int batch, int height, int width, int ignore_label, cudaStream_t s) {
+  const long long npix = (long long)batch * height * width;
+  int expected = 0;
+  const int err0 = fwd_grid<T>(npix, &expected);
+  if (err0) return err0;
+  if (grid != expected) return (int)cudaErrorInvalidValue;   // partials sized for another grid
+  fused_tail_fwd_kernel<T><<<grid, FwdShape<T>::kThreads, FwdSmem<T>::kBytes, s>>>(
+      static_cast<const T*>(x), weight, bias, labels, ce_partials, cnt_partials, height, width, npix,
+      ignore_label);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fwd_sum_kernel<<<1, kFinalThreads, 0, s>>>(ce_partials, cnt_partials, grid, ce_sum, count);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_grid(long long npix, int* grid) {
+  return persistent_grid(fused_tail_bwd_kernel<T>, kThreads, BwdSmem<T>::kBytes,
+                         (npix + kTileP - 1) / kTileP, grid);
 }
 
 template <typename T>
@@ -563,26 +699,29 @@ int launch_bwd(const void* x, const float* weight, const float* bias, const uint
 extern "C" {
 
 int dsrl_fused_tail_classes() { return kC; }
-int dsrl_fused_tail_fwd_threads() { return kFwdThreads; }
 int dsrl_fused_tail_partial_size() { return kRows * kCols; }
 
-// dtype: 0 = float32 x, 1 = bfloat16 x.  Writes the fixed backward grid for
-// npix pre-tail pixels to *grid (the wrapper sizes the partials with it);
-// returns a CUDA error code (0 = ok).
+// dtype: 0 = float32 x, 1 = bfloat16 x.  Write the fixed forward or
+// backward grid for npix pre-tail pixels to *grid (the wrapper sizes the
+// partials with it); return a CUDA error code (0 = ok).
+int dsrl_fused_tail_fwd_grid(int dtype, long long npix, int* grid) {
+  return dtype ? fwd_grid<__nv_bfloat16>(npix, grid) : fwd_grid<float>(npix, grid);
+}
+
 int dsrl_fused_tail_bwd_grid(int dtype, long long npix, int* grid) {
   return dtype ? bwd_grid<__nv_bfloat16>(npix, grid) : bwd_grid<float>(npix, grid);
 }
 
-// Both passes on `stream`.  ce_partials and cnt_partials hold
-// ceil(B*H*W / fwd_threads) slots; returns cudaGetLastError() (0 = ok).
+// Both passes on `stream`.  ce_partials and cnt_partials hold `grid` slots
+// (dsrl_fused_tail_fwd_grid); returns cudaGetLastError() (0 = ok).
 int dsrl_fused_tail_fwd(int dtype, const void* x, const float* weight, const float* bias,
-                        const uint8_t* labels, double* ce_partials, long long* cnt_partials,
+                        const uint8_t* labels, double* ce_partials, long long* cnt_partials, int grid,
                         double* ce_sum, long long* count, int batch, int height, int width,
                         int ignore_label, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_fwd<__nv_bfloat16>(x, weight, bias, labels, ce_partials, cnt_partials,
+  return dtype ? launch_fwd<__nv_bfloat16>(x, weight, bias, labels, ce_partials, cnt_partials, grid,
                                            ce_sum, count, batch, height, width, ignore_label, s)
-               : launch_fwd<float>(x, weight, bias, labels, ce_partials, cnt_partials, ce_sum,
+               : launch_fwd<float>(x, weight, bias, labels, ce_partials, cnt_partials, grid, ce_sum,
                                    count, batch, height, width, ignore_label, s);
 }
 

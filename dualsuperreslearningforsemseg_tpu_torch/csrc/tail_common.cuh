@@ -15,18 +15,22 @@
 // activation the weight is rounded to bfloat16 for every product; products
 // and sums are float32 and the bias is added in float32.
 //
-// Two forms of the logits:
-// * `tail_logits` (CUDA cores, one thread per pre-tail pixel, weights in
-//   shared memory as broadcast float4 rows): K1 forward.
-// * `tile_logits_mma` (tensor cores, `mma.sync`): the 16 consecutive
-//   pre-tail pixels of one warp as a (16 x 80) = (16 x K) . (K x 80) product,
-//   K = the C input channels padded with zeros, with its columns ordered so
-//   that each lane ends with whole output pixels in its accumulators
-//   (`col_pos`, `col_class`): no shared-memory round trip before the CE.  A float32 activation takes
-//   three TF32 passes (3xTF32: a = hi + lo with hi = tf32(a), lo =
-//   tf32(a - hi); a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, float32 accumulators),
-//   which keeps float32 accuracy; a bfloat16 activation one bfloat16 pass
-//   (m16n8k16), which is the rounding rule above.  K1 backward and K3.
+// The logits: the consecutive pre-tail pixels of a tile as a (M x 80) =
+// (M x K) . (K x 80) product on the tensor cores, K = the C input channels
+// padded with zeros, with its columns ordered so that each lane ends with
+// whole output pixels in its accumulators (`col_pos`, `col_class`): no
+// shared-memory round trip before the CE.  A float32 activation takes three
+// TF32 passes (3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi);
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, float32 accumulators), which keeps
+// float32 accuracy; a bfloat16 activation one bfloat16 pass, which is the
+// rounding rule above.  Two forms share the A fragments (the mma.sync m16
+// layout of a warp's 16 pixels, built in registers from its (C, 16) slab)
+// and the accumulator layout:
+// * `tile_logits_mma` (`mma.sync`, one warp's 16 pixels, B fragments from
+//   a shared table): K1 backward and K3.
+// * `issue_logits_wgmma` (`wgmma.mma_async`, a warpgroup's 64 pixels, B
+//   read by the tensor cores from a shared table through a matrix
+//   descriptor, asynchronous): K1 forward.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,7 +40,6 @@
 namespace dsrl_tail {
 
 constexpr int kC = 19;          // classes (Cityscapes); each wrapper checks it
-constexpr int kPad = 20;        // TailParams rows padded to whole float4s
 constexpr int kN = 4 * kC;      // logits of one pre-tail pixel: 76
 constexpr int kNPad = 80;       // ... padded to whole n8 tiles
 constexpr int kThreads = 256;   // threads of a tile kernel: 8 warps
@@ -62,57 +65,6 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);   // round to nearest even, as torch's cast
-}
-// The weight as the products see it: rounded to bfloat16 for a bfloat16 x.
-__device__ __forceinline__ float weight_value(float w, bool round_bf16) {
-  return round_bf16 ? __bfloat162float(__float2bfloat16(w)) : w;
-}
-
-// ---------------------------------------------------------------- CUDA cores
-
-// Shared-memory copy of the IOHW weight as w[kh*2+kw][ci][co], rows padded
-// to 20 floats (the pad is 0) so a thread reads them as float4s, and the
-// bias.  Every thread of a warp reads the same words (a broadcast).
-struct __align__(16) TailParams {
-  float w[4][kC][kPad];
-  float b[kC];
-};
-
-// Fills `p` from the IOHW (C, C, 2, 2) weight and the bias; the caller
-// synchronises the block afterwards.
-__device__ __forceinline__ void load_tail_params(TailParams& p, const float* __restrict__ weight,
-                                                 const float* __restrict__ bias, bool round_bf16) {
-  for (int i = threadIdx.x; i < 4 * kC * kPad; i += blockDim.x) {
-    const int kpos = i / (kC * kPad), row = (i / kPad) % kC, col = i % kPad;
-    // IOHW source index ((ci*C + co)*2 + kh)*2 + kw
-    (&p.w[0][0][0])[i] = col < kC ? weight_value(weight[(row * kC + col) * 4 + kpos], round_bf16) : 0.f;
-  }
-  if (threadIdx.x < kC) p.b[threadIdx.x] = bias[threadIdx.x];
-}
-
-// acc[j] += s * row[j] for j < C, reading the padded row as float4s.
-__device__ __forceinline__ void axpy_row(float s, const float* row, float (&acc)[kC]) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < kPad / 4; ++q) {
-    const float4 v = r4[q];
-    acc[4 * q] = fmaf(s, v.x, acc[4 * q]);
-    acc[4 * q + 1] = fmaf(s, v.y, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(s, v.z, acc[4 * q + 2]);
-    if (4 * q + 3 < kC) acc[4 * q + 3] = fmaf(s, v.w, acc[4 * q + 3]);
-  }
-}
-
-// The logits of output position kpos (kh*2+kw) of one pre-tail pixel:
-// l[co] = sum over ci in order of x[ci] * W[ci, co] (FMAs), then + bias.
-__device__ __forceinline__ void tail_logits(const float (&xv)[kC], const TailParams& p, int kpos,
-                                            float (&l)[kC]) {
-#pragma unroll
-  for (int co = 0; co < kC; ++co) l[co] = 0.f;
-#pragma unroll
-  for (int ci = 0; ci < kC; ++ci) axpy_row(xv[ci], p.w[kpos][ci], l);
-#pragma unroll
-  for (int co = 0; co < kC; ++co) l[co] += p.b[co];
 }
 
 // ---------------------------------------------------------------- CE terms
@@ -315,7 +267,9 @@ __device__ __forceinline__ PixelPos pixel_pos(long long p, unsigned hw) {
 }
 
 __device__ __forceinline__ PixelPos advance(PixelPos s, unsigned d, unsigned hw) {
-  const unsigned r = s.rem + d, q = r / hw;
+  const unsigned r = s.rem + d;
+  if (r < hw) return {s.b, r};   // most steps stay in the sample: no division
+  const unsigned q = r / hw;
   return {s.b + q, r - q * hw};
 }
 
@@ -352,6 +306,27 @@ __device__ __forceinline__ void load_x_part(T* slab, const T* __restrict__ x, lo
   }
 }
 
+// The common case of `load_x_part`, uniform over the warp: when the part
+// lies in one sample and every channel's 16 pixels are whole aligned
+// 16-byte chunks, starts their cp.async copies without per-chunk position
+// checks and returns true; else loads nothing and returns false.  (K1
+// forward's; in K1 backward the extra path costs registers it has not got.)
+template <typename T>
+__device__ __forceinline__ bool load_x_part_whole(T* slab, const T* __restrict__ x, long long p0, PixelPos pos0,
+                                                  long long npix, unsigned hw, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kChunks = kWarpP / V;
+  const T* part = x + pos0.b * kC * (long long)hw + pos0.rem;
+  if (p0 + kWarpP > npix || pos0.rem + kWarpP > hw || hw % V != 0 ||
+      (reinterpret_cast<uintptr_t>(part) & 15) != 0)
+    return false;
+  for (int i = lane; i < kC * kChunks; i += 32) {
+    const int ci = i / kChunks, c = i - ci * kChunks;
+    cp_async16(slab + ci * kSlabStride + c * V, part + ci * (long long)hw + c * V);
+  }
+  return true;
+}
+
 // Where pre-tail pixel p (at `pos`) lives: its first label byte (the 2x2
 // output block's top-left), the offset of its channel 0 in x, and its four
 // labels (byte kh*2 + kw of `labels4`, read as two 2-byte pairs).  Pixels
@@ -382,6 +357,32 @@ __device__ __forceinline__ float slab_at(const T* slab, int ci, int p) {
   return ci < kC ? to_float(slab[ci * kSlabStride + p]) : 0.f;
 }
 
+// The A fragments of one k step of the logits product from a warp's slab,
+// in the m16 layout of mma.sync and of wgmma's register A (rows = the
+// warp's 16 pixels, g and g + 8 for lane (g, t)).  TF32 (k8 step at k0):
+// columns k0 + t and k0 + t + 4, split into hi and lo.
+template <typename T>
+__device__ __forceinline__ void a_frag_tf32(const T* slab, int k0, int lane, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32(slab_at(slab, k0 + t, g), hi[0], lo[0]);
+  split_tf32(slab_at(slab, k0 + t, g + 8), hi[1], lo[1]);
+  split_tf32(slab_at(slab, k0 + t + 4, g), hi[2], lo[2]);
+  split_tf32(slab_at(slab, k0 + t + 4, g + 8), hi[3], lo[3]);
+}
+
+// bfloat16 (k16 step at k0): columns k0 + 2t, + 1 and k0 + 2t + 8, + 9,
+// packed in pairs.
+template <typename T>
+__device__ __forceinline__ void a_frag_bf16(const T* slab, int k0, int lane, uint32_t (&a)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = k0 + 2 * t, c1 = c0 + 8;
+  a[0] = pack_bf16(slab_at(slab, c0, g), slab_at(slab, c0 + 1, g));
+  a[1] = pack_bf16(slab_at(slab, c0, g + 8), slab_at(slab, c0 + 1, g + 8));
+  a[2] = pack_bf16(slab_at(slab, c1, g), slab_at(slab, c1 + 1, g));
+  a[3] = pack_bf16(slab_at(slab, c1, g + 8), slab_at(slab, c1 + 1, g + 8));
+}
+
 // The bias-free logits of a warp's 16 pixels (rows g and g + 8 of its
 // slab) in the m16n8 accumulator layout: acc[nt][0..1] = row g, columns
 // nt*8 + 2t + {0, 1}; acc[nt][2..3] = row g + 8.  s_wb is the logits' B
@@ -399,10 +400,7 @@ __device__ __forceinline__ void tile_logits_mma(const T* slab, const uint32_t* s
 #pragma unroll
     for (int k0 = 0; k0 < kK; k0 += 8) {
       uint32_t a_hi[4], a_lo[4];
-      split_tf32(slab_at(slab, k0 + t, g), a_hi[0], a_lo[0]);
-      split_tf32(slab_at(slab, k0 + t, g + 8), a_hi[1], a_lo[1]);
-      split_tf32(slab_at(slab, k0 + t + 4, g), a_hi[2], a_lo[2]);
-      split_tf32(slab_at(slab, k0 + t + 4, g + 8), a_hi[3], a_lo[3]);
+      a_frag_tf32(slab, k0, lane, a_hi, a_lo);
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         uint32_t b_hi[2], b_lo[2];
@@ -413,18 +411,171 @@ __device__ __forceinline__ void tile_logits_mma(const T* slab, const uint32_t* s
   } else {
 #pragma unroll
     for (int k0 = 0; k0 < kK; k0 += 16) {
-      const int c0 = k0 + 2 * t, c1 = c0 + 8;
       uint32_t a[4];
-      a[0] = pack_bf16(slab_at(slab, c0, g), slab_at(slab, c0 + 1, g));
-      a[1] = pack_bf16(slab_at(slab, c0, g + 8), slab_at(slab, c0 + 1, g + 8));
-      a[2] = pack_bf16(slab_at(slab, c1, g), slab_at(slab, c1 + 1, g));
-      a[3] = pack_bf16(slab_at(slab, c1, g + 8), slab_at(slab, c1 + 1, g + 8));
+      a_frag_bf16(slab, k0, lane, a);
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         uint32_t b[2];
         b_frag_bf16(s_wb, kSW, k0, nt * 8 + g, t, b);
         mma_bf16(acc[nt], a, b);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- warpgroup tensor cores
+
+// sm_90a's wgmma: the four warps of a warpgroup issue one asynchronous
+// m64 product together, each with its 16 rows of A in registers (the
+// fragments above) and its 16 rows of the (64 x 80) accumulators in the
+// m16n8 layout above, so `LaneRow` and the CE helpers read them unchanged.
+// B is read by the tensor cores from shared memory as 8 x 16-byte "core
+// matrices" (8 columns n, 16 bytes along K) without swizzle, K-major (the
+// only layout TF32 allows).  The logits' wgmma B table: per k step s (8
+// TF32 or 16 bfloat16 rows of K) 10 groups of 8 columns, each two core
+// matrices (the step's two 16-byte halves of K), at byte
+//   s * kWgStep + (n / 8) * kWgSbo + half * kWgLbo + (n % 8) * 16 + (k in half) * size.
+// Float32 x: two planes of TF32 words, hi then lo (3xTF32); bfloat16 x:
+// one plane of bfloat16.
+constexpr int kWgLbo = 128;               // K-adjacent core matrices (leading byte offset)
+constexpr int kWgSbo = 256;               // N-adjacent 8-column groups (stride byte offset)
+constexpr int kWgStep = kNT * kWgSbo;     // one k step: 2560 bytes
+constexpr int kWgM = 64;                  // pre-tail pixels of a warpgroup's tile
+
+template <typename T> struct WgTable {
+  static constexpr int kSteps = sizeof(T) == 4 ? 3 : 2;        // K = 24 (TF32) or 32 (bf16)
+  static constexpr int kPlane = kSteps * kWgStep;              // bytes
+  static constexpr int kBytes = (sizeof(T) == 4 ? 2 : 1) * kPlane;
+};
+
+// The logits' wgmma B table (W[ci, col_class(n), col_pos(n)], split or
+// rounded as the products see it) and s_b[co] = bias[co] (s_b[19] = 0).
+// The caller makes the stores visible to the tensor cores
+// (`wg_fence_proxy`) and synchronises the block afterwards.
+template <typename T>
+__device__ __forceinline__ void load_wg_weights(uint32_t* tab, float* s_b, const float* __restrict__ weight,
+                                                const float* __restrict__ bias) {
+  constexpr int kWords = WgTable<T>::kPlane / 4;
+  const auto value = [&](int ci, int n) {
+    const int co = col_class(n);
+    return ci < kC && co < kC ? weight[(ci * kC + co) * 4 + col_pos(n)] : 0.f;
+  };
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x) {
+    // word i = (((s * 10 + n / 8) * 2 + half) * 8 + n % 8) * 4 + e
+    const int e = i & 3, n = (i >> 6) % kNT * 8 + ((i >> 2) & 7), half = (i >> 5) & 1, s = (i >> 6) / kNT;
+    if constexpr (sizeof(T) == 4) {
+      split_tf32(value(8 * s + 4 * half + e, n), tab[i], tab[kWords + i]);
+    } else {
+      const int k = 16 * s + 8 * half + 2 * e;
+      tab[i] = pack_bf16(value(k, n), value(k + 1, n));   // lower k at the lower address
+    }
+  }
+  for (int co = threadIdx.x; co < kC + 1; co += blockDim.x) s_b[co] = co < kC ? bias[co] : 0.f;
+}
+
+// Generic-proxy stores to shared memory visible to wgmma's reads (the
+// async proxy); before the barrier that publishes them.
+__device__ __forceinline__ void wg_fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The matrix descriptor of a no-swizzle operand at `smem`: start address,
+// leading and stride byte offsets in 16-byte units; base offset and
+// layout type 0.
+__device__ __forceinline__ uint64_t wg_desc(const void* smem) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(kWgLbo >> 4) << 16 |
+         (uint64_t)(kWgSbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across a
+// wgmma's issue or wait (the tensor cores write them in between).
+__device__ __forceinline__ void wg_fence_acc(float (&d)[kNT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[nt][j])::"memory");
+}
+
+// d = a . B (scale_d 0) or d += a . B, m64n80k8, TF32, B at desc_b.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kNT][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The same, m64n80k16, bfloat16 (B not transposed: K-major).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kNT][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The A fragments of a warp's part of a warpgroup tile, every k step:
+// TF32 hi and lo (3 k8 steps) or bfloat16 (2 k16 steps).
+template <typename T> struct WgA {
+  uint32_t hi[WgTable<T>::kSteps][4];
+  uint32_t lo[sizeof(T) == 4 ? WgTable<T>::kSteps : 1][4];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_wg_a(const T* slab, int lane, WgA<T>& a) {
+#pragma unroll
+  for (int s = 0; s < WgTable<T>::kSteps; ++s) {
+    if constexpr (sizeof(T) == 4) a_frag_tf32(slab, 8 * s, lane, a.hi[s], a.lo[s]);
+    else a_frag_bf16(slab, 16 * s, lane, a.hi[s]);
+  }
+}
+
+// Issues the bias-free logits of the warpgroup's 64 pixels into d (every
+// k step; three TF32 passes, small terms first, for a float32 x), without
+// committing or waiting.  desc is the descriptor of the table's start;
+// a descriptor's address field counts 16-byte units.  The caller fences
+// (`wg_fence`) after writing a's or d's registers.
+template <typename T>
+__device__ __forceinline__ void issue_logits_wgmma(float (&d)[kNT][4], const WgA<T>& a, uint64_t desc) {
+#pragma unroll
+  for (int s = 0; s < WgTable<T>::kSteps; ++s) {
+    const uint64_t hi = desc + (uint64_t)(s * kWgStep >> 4);
+    if constexpr (sizeof(T) == 4) {
+      const uint64_t lo = hi + (uint64_t)(WgTable<T>::kPlane >> 4);
+      wgmma_tf32(d, a.lo[s], hi, s > 0);
+      wgmma_tf32(d, a.hi[s], lo, 1);
+      wgmma_tf32(d, a.hi[s], hi, 1);
+    } else {
+      wgmma_bf16(d, a.hi[s], hi, s > 0);
     }
   }
 }

@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from ..losses.cross_entropy import cross_entropy_sum
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype argument
-_FWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p])
+_FWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
@@ -133,6 +133,16 @@ def _library(c):
     return lib
 
 
+def _grid(query, dtype, npix, which):
+    """The kernel's fixed persistent grid for ``npix`` pre-tail pixels on
+    the current device (the partials are sized by it)."""
+    grid = ctypes.c_int(0)
+    err = query(ctypes.c_int(dtype), ctypes.c_longlong(npix), ctypes.byref(grid))
+    if err:
+        raise RuntimeError("fused tail {}: grid query failed: CUDA error {}".format(which, err))
+    return grid.value
+
+
 def fused_tail_forward(x, weight, bias, labels, ignore_label: int = 255):
     """Launches the forward kernel on CUDA tensors (and adds one to
     ``fused_tail_forward.launches``) -> (ce_sum float64, count int64), both
@@ -142,16 +152,16 @@ def fused_tail_forward(x, weight, bias, labels, ignore_label: int = 255):
     lib = _library(c)
     fn = lib.dsrl_fused_tail_fwd
     fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
-    blocks = -(-b * h * w // lib.dsrl_fused_tail_fwd_threads())
-    ce_partials = torch.empty(blocks, dtype=torch.float64, device=x.device)
-    cnt_partials = torch.empty(blocks, dtype=torch.int64, device=x.device)
-    ce_sum = torch.empty((), dtype=torch.float64, device=x.device)
-    count = torch.empty((), dtype=torch.int64, device=x.device)
+    dtype = DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                 labels.data_ptr(), ce_partials.data_ptr(), cnt_partials.data_ptr(),
-                 ce_sum.data_ptr(), count.data_ptr(), b, h, w, ignore_label,
-                 torch.cuda.current_stream().cuda_stream)
+        grid = _grid(lib.dsrl_fused_tail_fwd_grid, dtype, b * h * w, 'forward')
+        ce_partials = torch.empty(grid, dtype=torch.float64, device=x.device)
+        cnt_partials = torch.empty(grid, dtype=torch.int64, device=x.device)
+        ce_sum = torch.empty((), dtype=torch.float64, device=x.device)
+        count = torch.empty((), dtype=torch.int64, device=x.device)
+        err = fn(dtype, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+                 ce_partials.data_ptr(), cnt_partials.data_ptr(), grid, ce_sum.data_ptr(),
+                 count.data_ptr(), b, h, w, ignore_label, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("fused tail forward kernel launch failed: CUDA error {}".format(err))
     fused_tail_forward.launches += 1
@@ -170,21 +180,17 @@ def fused_tail_backward(x, weight, bias, labels, scale, ignore_label: int = 255)
     lib = _library(c)
     fn = lib.dsrl_fused_tail_bwd
     fn.argtypes, fn.restype = _BWD_SIGNATURE, ctypes.c_int
-    grid = ctypes.c_int(0)
     dtype = DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        err = lib.dsrl_fused_tail_bwd_grid(ctypes.c_int(dtype), ctypes.c_longlong(b * h * w),
-                                           ctypes.byref(grid))
-        if err:
-            raise RuntimeError("fused tail backward: grid query failed: CUDA error {}".format(err))
-        partials = torch.empty(grid.value * lib.dsrl_fused_tail_partial_size(),
+        grid = _grid(lib.dsrl_fused_tail_bwd_grid, dtype, b * h * w, 'backward')
+        partials = torch.empty(grid * lib.dsrl_fused_tail_partial_size(),
                                dtype=torch.float64, device=x.device)
         dx = torch.empty_like(x)
         dw = torch.empty_like(weight)
         db = torch.empty_like(bias)
         scale = scale.contiguous()
         err = fn(dtype, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
-                 scale.data_ptr(), dx.data_ptr(), partials.data_ptr(), grid.value,
+                 scale.data_ptr(), dx.data_ptr(), partials.data_ptr(), grid,
                  dw.data_ptr(), db.data_ptr(), b, h, w, ignore_label,
                  torch.cuda.current_stream().cuda_stream)
     if err:

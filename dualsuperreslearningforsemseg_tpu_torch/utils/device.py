@@ -4,7 +4,9 @@
 instead of falling back to the CPU.  The CPU serves tests and runs only when
 the caller asks for it.  Float32 stays full float32 on the card: both TF32
 switches are set explicitly (cuDNN's own default would run every float32
-convolution in TF32).
+convolution in TF32).  cuDNN runs only its deterministic algorithms (the
+autotuner picks among those), as the JAX package's steps are
+deterministic (tests/test_determinism.py there).
 """
 
 import torch
@@ -24,6 +26,7 @@ def select_device(device: str, cudnn_benchmark: bool = True) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = cudnn_benchmark
+    torch.backends.cudnn.deterministic = True
     return torch.device('cuda')
 
 

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the tail kernels K3 and K1 backward goes, on one GPU.
+"""Where the time of the tail kernels K3, K1 forward and K1 backward goes,
+on one GPU.
 
-    python3 tail_variants.py
+    python3 tail_variants.py [--parent DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 Builds variants of ``csrc/eval_tail.cu`` (K3) and ``csrc/fused_tail.cu``
-(K1; its backward is timed) from edited copies of the sources under
+(K1, forward and backward) from edited copies of the sources under
 ``build/variants/``, each with one part removed or changed, and times each
 with CUDA events at the main path's shapes, x (16, 19, 256, 512) for K3 and
-(8, 19, 256, 512) for K1 backward, float32 and bfloat16.  A variant's
+(8, 19, 256, 512) for K1, float32 and bfloat16: a call from the host, and
+the same launches replayed from a CUDA graph (device time).  A variant's
 results are wrong by construction: only its time means something, next to
-the unchanged build's from the same run.  Prints each build's
+the unchanged build's from the same run.  ``--parent DIR`` also builds the
+``fused_tail.cu`` of another checkout (e.g. the parent commit unpacked with
+``git archive``) and times its forward before and after all the others, so
+the two forwards are compared on one card in one run.  Prints each build's
 ``-Xptxas -v`` summary, one line per timing, then the card's name and power
 limit and a JSON object of all the timings.
 """
@@ -27,23 +32,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ATOMICS = ('  if (valid) atomicAdd(&hist[cls], 1);\n  if (hit) atomicAdd(&hist[kC + cls], 1);\n'
            '  if (active && lab < kC) atomicAdd(&hist[2 * kC + lab], 1);\n')
 LAUNCH_BOUNDS = '__global__ void __launch_bounds__(kThreads, 2)'
+FWD_CE = 'const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);'
+WG_3XTF32 = ('      wgmma_tf32(d, a.lo[s], hi, s > 0);\n      wgmma_tf32(d, a.hi[s], lo, 1);\n'
+             '      wgmma_tf32(d, a.hi[s], hi, 1);\n')
+FWD_SHAPE = 'static constexpr int kWG = sizeof(T) == 4 ? 5 : 6;'
 # name -> {source file: [(text, replacement), ...]}
 VARIANTS = {
     'as_built': {},
-    'one_tf32_pass': {'tail_common.cuh': [(
-        '  mma_tf32(d, a_lo, b_hi);\n  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_hi, b_hi);',
-        '  mma_tf32(d, a_hi, b_hi);')]},
+    'one_tf32_pass': {'tail_common.cuh': [
+        ('  mma_tf32(d, a_lo, b_hi);\n  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_hi, b_hi);',
+         '  mma_tf32(d, a_hi, b_hi);'),
+        (WG_3XTF32, '      wgmma_tf32(d, a.hi[s], hi, s > 0);\n')]},
     'no_logits_mma': {'tail_common.cuh': [
         ('mma_3xtf32(acc[nt], a_hi, a_lo, b_hi, b_lo);', 'acc[nt][0] += __uint_as_float(b_hi[0] ^ a_lo[0]);'),
-        ('mma_bf16(acc[nt], a, b);', 'acc[nt][0] += __uint_as_float(b[0] ^ a[0]);')]},
+        ('mma_bf16(acc[nt], a, b);', 'acc[nt][0] += __uint_as_float(b[0] ^ a[0]);'),
+        (WG_3XTF32, '      d[s][0] += __uint_as_float(a.hi[s][0] ^ a.lo[s][0]);\n'),
+        ('      wgmma_bf16(d, a.hi[s], hi, s > 0);', '      d[s][0] += __uint_as_float(a.hi[s][0]);')]},
     'no_exp': {
         'eval_tail.cu': [('ce += (double)dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);',
                           'ce += (double)(m - picked);')],
         'fused_tail.cu': [('const float inv_z = 1.f / dsrl_tail::exp_sum(l, dsrl_tail::row_max(l));',
-                           'const float inv_z = 1.f / (1.f + l[3]);')]},
+                           'const float inv_z = 1.f / (1.f + l[3]);'),
+                          (FWD_CE, 'const float nll = m - picked;')]},
     'no_histograms': {'eval_tail.cu': [(ATOMICS, '')]},
-    'no_async_loads': {'tail_common.cuh': [('      cp_async16(dst, src);\n',
-                                            '      dst[0] = from_float<T>(0.f);\n')]},
+    'no_async_loads': {'tail_common.cuh': [
+        ('      cp_async16(dst, src);\n', '      dst[0] = from_float<T>(0.f);\n'),
+        ('    cp_async16(slab + ci * kSlabStride + c * V, part + ci * (long long)hw + c * V);\n',
+         '    slab[ci * kSlabStride + c * V] = from_float<T>(0.f);\n')]},
     'no_dx': {'fused_tail.cu': [(
         '    part_dx<T>(s_l, s_wtb, s_off + cur * kWarpP, dx, p0, npix, hw, lane);\n', '')]},
     'no_dw': {'fused_tail.cu': [(
@@ -54,7 +69,11 @@ VARIANTS = {
                             'fused_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '3)'))]},
     'one_block_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))],
                          'fused_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))]},
+    # K1 forward only: one warpgroup a block fewer or more (float32 x / bfloat16 x).
+    'fwd_warpgroups_4_5': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '4 : 5'))]},
+    'fwd_warpgroups_6_7': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '6 : 7'))]},
 }
+FWD_ONLY = tuple(name for name in VARIANTS if name.startswith('fwd_'))
 KERNELS = ('eval_tail', 'fused_tail')
 
 
@@ -80,32 +99,48 @@ def edited_sources(csrc, out):
     return dirs
 
 
+def start_build(src_dir, kern, so):
+    from dualsuperreslearningforsemseg_tpu_torch.ops import _build
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-o', so,
+           os.path.join(src_dir, kern + '.cu')]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
+
+
 def main():
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--parent', help="a checkout whose K1 forward is timed beside this one's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tail_variants: torch sees no CUDA device")
     sys.path.insert(0, HERE)
     import chip_smoke
     from dualsuperreslearningforsemseg_tpu_torch.ops import _build
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import _C_SIGNATURE as K3_SIGNATURE
-    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import _BWD_SIGNATURE as K1_SIGNATURE
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
+        _BWD_SIGNATURE as K1_SIGNATURE, _FWD_SIGNATURE as K1_FWD_SIGNATURE)
     from dualsuperreslearningforsemseg_tpu_torch.utils import select_device
     select_device('cuda')
-    dirs = edited_sources(_build.CSRC_DIR, os.path.join(HERE, 'build', 'variants'))
+    out = os.path.join(HERE, 'build', 'variants')
+    dirs = edited_sources(_build.CSRC_DIR, out)
     procs = {}
     for name, d in dirs.items():
-        for kern in KERNELS:
-            so = os.path.join(d, kern + '.so')
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-o', so,
-                   os.path.join(d, kern + '.cu')]
-            procs[(name, kern)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                    stderr=subprocess.STDOUT, text=True), so)
+        for kern in (('fused_tail',) if name in FWD_ONLY else KERNELS):
+            procs[(name, kern)] = start_build(d, kern, os.path.join(d, kern + '.so'))
+    if args.parent:
+        procs[('parent', 'fused_tail')] = start_build(
+            os.path.join(os.path.abspath(args.parent), 'dualsuperreslearningforsemseg_tpu_torch', 'csrc'),
+            'fused_tail', os.path.join(out, 'parent_fused_tail.so'))
     libs = {}
     for (name, kern), (proc, so) in procs.items():
         log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit("nvcc failed on variant {} of {}:\n{}".format(name, kern, log[-4000:]))
-        kept = [line.strip() for line in log.splitlines() if 'registers' in line or 'spill' in line]
+        if proc.returncode:   # e.g. too few registers for wgmma: reported, not timed
+            fatal = [line.strip() for line in log.splitlines() if 'fatal' in line or 'error' in line]
+            print("{} {}: nvcc failed: {}".format(name, kern, ' | '.join(fatal)[-2000:]), flush=True)
+            continue
+        kept = [line.strip() for line in log.splitlines()
+                if 'registers' in line or 'spill' in line or 'entry function' in line or 'wgmma' in line]
         print("{} {}: {}".format(name, kern, ' | '.join(kept)), flush=True)
         libs[(name, kern)] = ctypes.CDLL(so)
 
@@ -115,48 +150,95 @@ def main():
     stream = torch.cuda.current_stream().cuda_stream
     one = torch.ones((), device='cuda')
     times = {}
+
+    def grid_of(query, code, npix):
+        grid = ctypes.c_int(0)
+        if query(ctypes.c_int(code), ctypes.c_longlong(npix), ctypes.byref(grid)):
+            raise SystemExit("grid query failed")
+        return grid.value
+
+    def k1_forward_args(lib, code, x, labels):
+        """The forward's entry and arguments; a library that still has
+        ``dsrl_fused_tail_fwd_threads`` (the one-thread-per-pixel design)
+        sizes its partials by it and takes no grid."""
+        b, _, h, w = x.shape
+        fn = lib.dsrl_fused_tail_fwd
+        ce, cnt = (torch.empty((), dtype=dt, device='cuda') for dt in (torch.float64, torch.int64))
+        if hasattr(lib, 'dsrl_fused_tail_fwd_threads'):
+            grid = -(-b * h * w // lib.dsrl_fused_tail_fwd_threads())
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        else:
+            grid = grid_of(lib.dsrl_fused_tail_fwd_grid, code, b * h * w)
+            fn.argtypes = K1_FWD_SIGNATURE
+        fn.restype = ctypes.c_int
+        parts = [torch.empty(grid, dtype=dt, device='cuda') for dt in (torch.float64, torch.int64)]
+        head = (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+                parts[0].data_ptr(), parts[1].data_ptr())
+        tail = (ce.data_ptr(), cnt.data_ptr(), b, h, w, 255, stream)
+        keep = (parts, ce, cnt)
+        if hasattr(lib, 'dsrl_fused_tail_fwd_threads'):
+            return fn, head + tail, grid, keep
+        return fn, head + (grid,) + tail, grid, keep
+
+    def timed(key, fn, fargs, grid):
+        """A call's time (CUDA events over 30 calls) and its device time
+        (replayed from a CUDA graph: no host launch cost); the stream
+        argument comes last and is taken at call time."""
+        def run():
+            if fn(*fargs[:-1], torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("launch of {} failed".format(key))
+
+        ms = chip_smoke.cuda_ms(run, iters=30)
+        graph = chip_smoke.graph_ms(run)
+        times[key] = {'ms': ms, 'graph_ms': graph, 'grid': grid}
+        print("{}: {:.4f} ms a call, {:.4f} ms replayed from a graph (grid {})".format(key, ms, graph, grid),
+              flush=True)
+
+    def time_parent(when):
+        if ('parent', 'fused_tail') in libs:
+            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                x = x1.to(dtype)
+                fn, fargs, grid, _keep = k1_forward_args(libs[('parent', 'fused_tail')], code, x, labels1)
+                timed('K1 forward parent ({}) {}'.format(when, str(dtype).replace('torch.', '')),
+                      fn, fargs, grid)
+
+    time_parent('first')
     for (name, kern), lib in sorted(libs.items()):
+        if name == 'parent':
+            continue
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            grid = ctypes.c_int(0)
+            suffix = '{} {}'.format(name, str(dtype).replace('torch.', ''))
             if kern == 'eval_tail':
                 x, labels = x3.to(dtype), labels3
                 b, _, h, w = x.shape
-                if lib.dsrl_eval_tail_grid(ctypes.c_int(code), ctypes.c_longlong(b * h * w),
-                                           ctypes.byref(grid)):
-                    raise SystemExit("grid query failed")
+                grid = grid_of(lib.dsrl_eval_tail_grid, code, b * h * w)
                 fn = lib.dsrl_eval_tail
                 fn.argtypes, fn.restype = K3_SIGNATURE, ctypes.c_int
                 pred = torch.empty_like(labels)
-                partials = torch.empty(grid.value, dtype=torch.float64, device='cuda')
+                partials = torch.empty(grid, dtype=torch.float64, device='cuda')
                 ce = torch.empty((), dtype=torch.float64, device='cuda')
                 counts = torch.zeros(3 * 19 + 2, dtype=torch.int64, device='cuda')
-                args = (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
-                        pred.data_ptr(), partials.data_ptr(), grid.value, ce.data_ptr(),
-                        counts.data_ptr(), b, h, w, 255, stream)
-            else:
-                x, labels = x1.to(dtype), labels1
-                b, _, h, w = x.shape
-                if lib.dsrl_fused_tail_bwd_grid(ctypes.c_int(code), ctypes.c_longlong(b * h * w),
-                                                ctypes.byref(grid)):
-                    raise SystemExit("grid query failed")
-                fn = lib.dsrl_fused_tail_bwd
-                fn.argtypes, fn.restype = K1_SIGNATURE, ctypes.c_int
-                dx, dw, db = torch.empty_like(x), torch.empty_like(weight), torch.empty_like(bias)
-                partials = torch.empty(grid.value * lib.dsrl_fused_tail_partial_size(),
-                                       dtype=torch.float64, device='cuda')
-                args = (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), labels.data_ptr(),
-                        one.data_ptr(), dx.data_ptr(), partials.data_ptr(), grid.value,
-                        dw.data_ptr(), db.data_ptr(), b, h, w, 255, stream)
-
-            def run():
-                if fn(*args):
-                    raise SystemExit("launch of variant {} of {} failed".format(name, kern))
-
-            ms = chip_smoke.cuda_ms(run, iters=30)
-            key = '{} {} {}'.format('K3' if kern == 'eval_tail' else 'K1 backward', name,
-                                    str(dtype).replace('torch.', ''))
-            times[key] = {'ms': ms, 'grid': grid.value}
-            print("{}: {:.4f} ms (grid {})".format(key, ms, grid.value), flush=True)
+                timed('K3 ' + suffix, fn, (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                                           labels.data_ptr(), pred.data_ptr(), partials.data_ptr(), grid,
+                                           ce.data_ptr(), counts.data_ptr(), b, h, w, 255, stream), grid)
+                continue
+            x, labels = x1.to(dtype), labels1
+            fn, fargs, grid, _keep = k1_forward_args(lib, code, x, labels)
+            timed('K1 forward ' + suffix, fn, fargs, grid)
+            if name in FWD_ONLY:
+                continue
+            b, _, h, w = x.shape
+            grid = grid_of(lib.dsrl_fused_tail_bwd_grid, code, b * h * w)
+            fn = lib.dsrl_fused_tail_bwd
+            fn.argtypes, fn.restype = K1_SIGNATURE, ctypes.c_int
+            dx, dw, db = torch.empty_like(x), torch.empty_like(weight), torch.empty_like(bias)
+            partials = torch.empty(grid * lib.dsrl_fused_tail_partial_size(),
+                                   dtype=torch.float64, device='cuda')
+            timed('K1 backward ' + suffix, fn, (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                                                labels.data_ptr(), one.data_ptr(), dx.data_ptr(),
+                                                partials.data_ptr(), grid, dw.data_ptr(), db.data_ptr(),
+                                                b, h, w, 255, stream), grid)
+    time_parent('last')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)

@@ -22,6 +22,10 @@ device.  Run on the GPU machine with
   (3 x 97 x 201 = 457 tiles; 8192 at the full shape), in float32 and
   bfloat16: K3 on exact inputs equal to the plain version, K1 as above;
   every pixel ignored gives zero CE, zero counts and zero gradients.
+* K1 forward (persistent warpgroups over 64-pixel tiles, wgmma): at
+  (1, 8, 40), (3, 97, 201) and (2, 64, 128) in float32 and bfloat16, the CE
+  sum within rel 1e-5 of the plain version and the count equal, two
+  launches bit-identical, every pixel ignored giving 0 and 0.
 * K2 (photometric tail): bit-exact against the plain version in float32
   (every op is rounded alone in both), identity taps included, bfloat16
   within one ulp, at an odd width too.
@@ -33,6 +37,11 @@ device.  Run on the GPU machine with
   plain version (integer sign counts times g), two launches bit-identical,
   and ``fa_loss`` on CUDA maps launches it.
 * The warp (plain PyTorch) on the card equals its CPU run.
+* Run-to-run determinism: one stage-1 train step at the CPU suite's small
+  depth, after a warm-up step (cuDNN's autotuner has chosen), run twice
+  from the same saved model, optimizer and generator state with the
+  port's device settings (``select_device``): losses and every state
+  tensor bitwise equal (tests/test_torch_determinism.py).
 """
 
 import numpy as np
@@ -51,6 +60,8 @@ from dualsuperreslearningforsemseg_tpu_torch.ops.fa_pairwise import (
     fa_pairwise_forward_plain)
 from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import (
     fused_convt2_ce_mean, fused_convt2_ce_sum_plain, fused_tail_backward, fused_tail_forward)
+from dualsuperreslearningforsemseg_tpu_torch.utils import select_device
+from test_torch_determinism import assert_bitwise_equal, repeated_step
 
 pytestmark = pytest.mark.cuda
 
@@ -234,6 +245,26 @@ def test_fused_tail_backward_tiles(cuda, shape, dtype):
     _assert_grad(grads[2], br.grad, 1e-4)
 
 
+@pytest.mark.parametrize('shape', [(1, 8, 40), (3, 97, 201), (2, 64, 128)])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_fused_tail_forward_tiles(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    x, weight, bias, labels = _tail_inputs(gen, *shape, getattr(torch, dtype), cuda)
+    before = fused_tail_forward.launches
+    ce, count = fused_tail_forward(x, weight, bias, labels)
+    again = fused_tail_forward(x, weight, bias, labels)
+    torch.cuda.synchronize()
+    assert fused_tail_forward.launches == before + 2
+    assert torch.equal(ce, again[0]) and torch.equal(count, again[1])
+    with torch.no_grad():
+        ce_p, count_p = fused_convt2_ce_sum_plain(x, weight, bias, labels)
+    assert int(count) == int(count_p)
+    np.testing.assert_allclose(float(ce), float(ce_p), rtol=1e-5)
+    labels.fill_(255)
+    ce, count = fused_tail_forward(x, weight, bias, labels)
+    assert float(ce) == 0.0 and int(count) == 0
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_tail_kernels_all_ignored(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(15)
@@ -330,3 +361,7 @@ def test_warp_on_the_card_matches_its_cpu_run(cuda):
     assert img_g.is_cuda and seg_g.is_cuda
     assert int((img_g.cpu().short() - img_c.short()).abs().max()) <= 1
     assert torch.equal(seg_g.cpu(), seg_c)
+
+
+def test_train_step_is_bitwise_deterministic_on_the_card(cuda):
+    assert_bitwise_equal(*repeated_step(select_device('cuda'), stage=1))
