@@ -43,11 +43,14 @@ nothing of JAX.  Phases, each fatal on failure:
    stages 2-3 SISR target) bit-exact in float32 with ``F.pixel_unshuffle``
    of the plain planar output, bfloat16 within one ulp; timed;
 5. K4: the FA all-pairs kernels, forward and backward, against their plain
-   versions at (8, 256) (the stage-3 recipe), (3, 100) (ragged) and
-   (304, 1024), on rows with exact ties: the sums within rel 1e-5, da and
-   db bit-equal (integer sign counts times g), two launches bit-identical,
-   and the autograd mean's gradients equal to the plain autograd path's;
-   kernel, plain and ``torch.cdist`` timed;
+   versions at (8, 256) (the stage-3 recipe), (3, 100) (ragged),
+   (304, 1024), (5, 2049) (two chunks and a ragged tile), (2, 1), (1, 8192)
+   (four chunks, 8 blocks to a cluster) and (13, 1000), on rows with exact
+   ties: the sums within rel 1e-5, da and db bit-equal (integer sign counts
+   times g), two launches bit-identical, and the autograd mean's gradients
+   equal to the plain autograd path's; kernel (a wrapper call, and
+   replayed from a CUDA graph), plain and ``torch.cdist`` timed at (8, 256)
+   and (304, 1024);
 6. main path: writes a synthetic Cityscapes val split (36 frames at
    1024x2048, batches 16+16+4) and seeded stage-1 ``.weights`` (the port's
    init), then runs ``benchmark`` at full depth (3,4,23,3) and 256x512 through
@@ -69,8 +72,10 @@ nothing of JAX.  Phases, each fatal on failure:
    within rel 1e-5, the updates SGD applied (lr * its momentum buffer after
    one step) within 1e-4 of the largest update; then a warm float32 step at
    batch 8 and its parts timed with CUDA events, the step again without
-   cuDNN's deterministic algorithms and once more with them, and one
-   bfloat16 (``--mixed-precision O1``) step;
+   cuDNN's deterministic algorithms and once more with them, one bfloat16
+   (``--mixed-precision O1``) step, and both steps with the parent's
+   in-graph resize (``F.interpolate``) in turns with the matmul resize;
+   then each resize's forward + backward alone at the step's three shapes;
 9. cascade: ``train --stage 2`` and then ``--stage 3`` in the same
    experiment, at full depth, counts reset before each run and read after:
    K1 forward and backward and K2 (unshuffling) 3 each, K3 5, and at stage 3
@@ -82,8 +87,13 @@ nothing of JAX.  Phases, each fatal on failure:
 10. stage-3 train step: one step with K4 against the same step with the
    dense FA (as phase 8, all four losses within rel 1e-5), the warm float32
    step's parts (warp, K2 + resize, forward, K1, MSE, FA with its power
-   iteration and K4 forward, backward, SGD), and one bfloat16 step in which
-   K4 still receives float32.
+   iteration and K4 forward, backward, SGD), one bfloat16 step in which
+   K4 still receives float32, and the resize timings of phase 8;
+11. determinism, after phase 8 at stage 1 and after phase 10 at stage 3: a
+   warm-up step, then two full-depth train steps at batch 8 from the same
+   saved model, optimizer, generator and CUDA RNG state with
+   ``select_device``'s settings (live dropout and BatchNorm): the losses
+   and every state tensor bitwise equal.
 
 Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
 TB/s and its operations over the card's peak for their type: the 19x19
@@ -182,7 +192,9 @@ def compare_tail(x, weight, bias, labels, exact, tie_eps=1e-5):
     mismatch = pred_k != pred_p
     n_mismatch = int(mismatch.sum())
     n_far = int((mismatch & ~near_tie).sum())
-    area_diff = max(int((a - b).abs().sum()) for a, b in zip(areas_k, areas_p))
+    # A pixel whose class flips moves two bins of a histogram by one each:
+    # every bin may differ by at most the flipped pixels.
+    area_diff = max(int((a - b).abs().max()) for a, b in zip(areas_k, areas_p))
     count_diff = [int(acc_k[0] - acc_p[0]), int(acc_k[1] - acc_p[1])]
     ce_k, ce_p = float(ce_k), float(ce_p)
     rel = abs(ce_k - ce_p) / max(abs(ce_p), 1e-30)
@@ -553,11 +565,12 @@ def k4_phase():
         fa_pairwise_forward, fa_pairwise_forward_plain, fa_pairwise_backward,
         fa_pairwise_backward_plain)
     gen = torch.Generator(device='cuda').manual_seed(777)
-    cases = {shape: k4_case(gen, *shape) for shape in ((8, 256), (3, 100), (304, 1024))}
+    shapes = ((8, 256), (3, 100), (304, 1024), (5, 2049), (2, 1), (1, 8192), (13, 1000))
+    cases = {shape: k4_case(gen, *shape) for shape in shapes}
     results = {shape: k4_compare(*ab) for shape, ab in cases.items()}
     records = []
     for (rows, n), (a, b) in cases.items():
-        if (rows, n) == (3, 100):
+        if (rows, n) not in ((8, 256), (304, 1024)):
             continue
         g = torch.ones(rows, device='cuda')
         iters = 200 if rows == 8 else 20
@@ -612,7 +625,7 @@ def check_eval_step(model, loader_batch, transform, eval_step, tie_eps=1e-4):
         near_tie = (top2[..., 0] - top2[..., 1]) <= tie_eps
     mismatch = pred.long() != pred_ref
     n_mismatch, n_far = int(mismatch.sum()), int((mismatch & ~near_tie).sum())
-    area_diff = max(int((a - b).abs().sum()) for a, b in zip(areas, areas_ref))
+    area_diff = max(int((a - b).abs().max()) for a, b in zip(areas, areas_ref))   # per bin
     ce = float(losses['CE'])
     out = {'ce_step': ce, 'ce_plain': ce_ref, 'pred_mismatch': n_mismatch,
            'pred_mismatch_beyond_tie': n_far, 'max_area_diff': area_diff,
@@ -921,6 +934,48 @@ def sgd_updates(optimizer, model, lr):
     return {k: lr * optimizer.state[v]['momentum_buffer'] for k, v in model.named_parameters()}
 
 
+def interpolate_resize(x, out_hw):
+    """The parent's in-graph resize: ``F.interpolate`` with align_corners."""
+    import torch.nn.functional as F
+    return F.interpolate(x, size=tuple(int(v) for v in out_hw), mode='bilinear', align_corners=True)
+
+
+def timed_with_resize(fn, resize):
+    """cuda_ms of ``fn`` with the model's three in-graph resizes (the
+    ``resize_bilinear_matmul`` that models/dsrl.py and models/aspp.py call)
+    replaced by ``resize``."""
+    from dualsuperreslearningforsemseg_tpu_torch.models import aspp, dsrl
+    saved = dsrl.resize_bilinear_matmul, aspp.resize_bilinear_matmul
+    dsrl.resize_bilinear_matmul = aspp.resize_bilinear_matmul = resize
+    try:
+        return cuda_ms(fn, iters=5, warmup=1)
+    finally:
+        dsrl.resize_bilinear_matmul, aspp.resize_bilinear_matmul = saved
+
+
+def resize_times(device_name):
+    """Forward + backward of each in-graph resize at batch 8, the parent's
+    ``F.interpolate`` against the matmul resize, float32 and bfloat16, with
+    CUDA events: the ASPP's pooled branch, x4 after the ASPP and the
+    decoder's x2."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.resize import resize_bilinear_matmul
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    sites = {'pooled (8,256,1,1)->(16,32)': ((8, 256, 1, 1), (16, 32)),
+             'x4 (8,256,16,32)->(64,128)': ((8, 256, 16, 32), (64, 128)),
+             'x2 (8,19,64,128)->(128,256)': ((8, 19, 64, 128), (128, 256))}
+    times = {}
+    for site, (shape, out_hw) in sites.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device='cuda').to(dtype).requires_grad_()
+            g = torch.randn(shape[:2] + out_hw, generator=gen, device='cuda').to(dtype)
+            for name, fn in (('interpolate', interpolate_resize), ('matmul', resize_bilinear_matmul)):
+                times['{} {} {}'.format(site, str(dtype)[6:], name)] = cuda_ms(
+                    lambda: fn(x, out_hw).backward(g), iters=20)
+    print("resize forward + backward on {}, ms: {}".format(device_name, json.dumps(times)), flush=True)
+    return times
+
+
 def train_step_phase(device_name, weights, stage):
     """One step against the same step with a plain part (stage 1: the plain
     tail instead of K1; stage 3: the dense FA instead of K4), then the warm
@@ -934,6 +989,7 @@ def train_step_phase(device_name, weights, stage):
     from dualsuperreslearningforsemseg_tpu_torch.losses import fa as fa_module, mse_loss
     from dualsuperreslearningforsemseg_tpu_torch.models.dsrl import SISR_UPSCALE
     from dualsuperreslearningforsemseg_tpu_torch.ops import fa_pairwise, fused_tail
+    from dualsuperreslearningforsemseg_tpu_torch.ops.resize import resize_bilinear_matmul
     from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step, make_sgd, steps
     ds = settings.DATASETS['cityscapes']['settings']
     cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
@@ -1088,6 +1144,13 @@ def train_step_phase(device_name, weights, stage):
         fa_module.fa_allpairs_abs_mean = k4_mean
     times['bf16_step_ms'] = cuda_ms(whole_bf16_step, iters=5, warmup=1)
     times['bf16_step_img_per_s'] = 8 / times['bf16_step_ms'] * 1e3
+    # The step with the parent's resize (F.interpolate, whose backward adds
+    # with atomics) against the matmul resize, in turns: parent, this,
+    # this, parent, float32 and bfloat16.
+    for label, fn in (('step_ms', whole_step), ('bf16_step_ms', whole_bf16_step)):
+        times[label + ' (parent resize, this, this, parent resize)'] = [
+            timed_with_resize(fn, resize) for resize in
+            (interpolate_resize, resize_bilinear_matmul, resize_bilinear_matmul, interpolate_resize)]
     print("stage-{} train step at batch 8 on {}: {}".format(stage, device_name, json.dumps(times)),
           flush=True)
     print("stage-{} bfloat16 step: K1 received {}, K4 received {}, losses {}".format(
@@ -1098,6 +1161,58 @@ def train_step_phase(device_name, weights, stage):
         fail("the bfloat16 step handed K1 {} and K4 {}: {}".format(seen['K1'], seen['K4'],
                                                                   bf16_losses))
     return times
+
+
+def determinism_phase(device_name, weights, stage):
+    """Two full-depth train steps at batch 8 from one saved model, optimizer,
+    photometric generator and CUDA RNG state, after a warm-up step (the
+    momentum buffers exist and cuDNN's autotuner has chosen), with
+    ``select_device``'s settings and live dropout and BatchNorm: the losses
+    and every state tensor must be bitwise equal."""
+    import copy
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.data import (
+        AugmentConfig, CityscapesDataset, make_warp_transform, make_device_post_fn)
+    from dualsuperreslearningforsemseg_tpu_torch.models.dsrl import SISR_UPSCALE
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step, make_sgd
+    ds = settings.DATASETS['cityscapes']['settings']
+    cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
+                        mean=ds.MEAN, std=ds.STD)
+    train_set = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='train')
+    imgs, segs = (torch.from_numpy(np.stack(a)).cuda()
+                  for a in zip(*(train_set[i] for i in range(8, 16))))
+    imgs, segs = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED)(1, 1, imgs, segs)
+    model = load_stage_model(weights, stage)
+    optimizer = make_sgd(model, 0.006, 0.9, 0.0005)
+    w1, w2 = settings.DEFAULT_LOSS_WEIGHTS
+    post = make_device_post_fn(cfg, unshuffle_hi=SISR_UPSCALE if stage > 1 else 0)
+    step = make_train_step(model, optimizer, stage, w1, w2, ds.IGNORE_CLASS_LABEL, False, post_fn=post)
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    step(imgs, segs, 0.006, gen)
+    saved = (copy.deepcopy(model.state_dict()), copy.deepcopy(optimizer.state_dict()),
+             gen.get_state(), torch.cuda.get_rng_state())
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        gen.set_state(saved[2])
+        torch.cuda.set_rng_state(saved[3])
+        losses = step(imgs, segs, 0.006, gen)
+        runs.append(({k: v.detach().clone() for k, v in losses.items()},
+                     {k: v.detach().clone() for k, v in model.state_dict().items()}))
+    (losses_a, state_a), (losses_b, state_b) = runs
+    differ = [k for k in losses_a if not torch.equal(losses_a[k], losses_b[k])]
+    differ += [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+    moved = sum(not torch.equal(state_a[k], saved[0][k]) for k in saved[0])
+    out = {'stage': stage, 'losses': {k: float(v) for k, v in losses_a.items()},
+           'state_tensors': len(state_a), 'moved_by_the_step': moved, 'differ': differ,
+           'cudnn_deterministic': torch.backends.cudnn.deterministic}
+    print("determinism at stage {} on {}, full depth, batch 8: {}".format(stage, device_name,
+                                                                        json.dumps(out)), flush=True)
+    if differ or not moved or not all(np.isfinite(v) for v in out['losses'].values()):
+        fail("two stage-{} train steps from one state are not bitwise equal: {}".format(stage, out))
 
 
 def ptxas_report(log):
@@ -1200,11 +1315,14 @@ def main():
     main_path_phase(name)
     _, weights1 = train_phase(name)
     train_step_phase(name, weights1, 1)
+    resize_times(name)
+    determinism_phase(name, weights1, 1)
     counts, weights3 = cascade_phase(name)
     kernels = [k3] + k1 + [k2] + k4
     for rec in kernels:
         rec['launches'] = counts[rec['name']]
     train_step_phase(name, weights3, 3)
+    determinism_phase(name, weights3, 3)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

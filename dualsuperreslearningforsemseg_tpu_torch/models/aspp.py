@@ -3,14 +3,16 @@
 The reference architecture (reference models/modules/ASPP.py:4-44), as the
 JAX package's ``models/aspp.py`` builds it: five Conv+BN+ReLU branches — a
 1x1, three 3x3 atrous convs at dilations 6/12/18 * rate, and a 1x1 on the
-global-average-pooled feature, resized back by align-corners bilinear — and
-a 1x1 fuse conv over their concat.  Branch names ``branches.{i}.{0,1}``
+global-average-pooled feature, resized back by align-corners bilinear
+(``ops/resize.py``, as the JAX package resizes it) — and a 1x1 fuse conv
+over their concat.  Branch names ``branches.{i}.{0,1}``
 are the torch Sequential indices the ``.weights`` files use.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..ops.resize import resize_bilinear_matmul
 
 
 def _branch(in_channels, out_channels, kernel, dilation):
@@ -34,6 +36,5 @@ class ASPP(nn.Module):
     def forward(self, x):
         outputs = [branch(x) for branch in self.branches[:4]]
         g = self.branches[4](x.mean(dim=(2, 3), keepdim=True))
-        outputs.append(F.interpolate(g, size=x.shape[2:], mode='bilinear',
-                                     align_corners=True))
+        outputs.append(resize_bilinear_matmul(g, x.shape[2:]))
         return self.branches[5](torch.cat(outputs, dim=1))

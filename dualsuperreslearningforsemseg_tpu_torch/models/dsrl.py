@@ -5,8 +5,8 @@ The reference network (reference models/DSRL.py:11-186) as the JAX package's
 ``models/dsrl.py`` builds it:
 
 * feature extractor: ResNet-101 (output stride 16) -> ASPP -> bilinear x4
-  (align_corners) -> concat with a 1x1+BN+ReLU shortcut of the low-level
-  features -> (B, 304, H/4, W/4);
+  (align_corners, as two products: ops/resize.py) -> concat with a
+  1x1+BN+ReLU shortcut of the low-level features -> (B, 304, H/4, W/4);
 * SSSR decoder: two 3x3 Conv+BN+ReLU+Dropout(0.2) (304->256->256), a 1x1
   classifier to NUM_CLASSES, then the upsample tail ``upsample16_pred``:
   bilinear x2 + Dropout + ConvT(2,2)+BN+ReLU+Dropout + ConvT(2,2), a total
@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..consts import NUM_RGB_CHANNELS
+from ..ops.resize import resize_bilinear_matmul
 from .resnet import ResNet101
 from .aspp import ASPP
 
@@ -73,9 +74,17 @@ class FeatureExtractor(nn.Module):
         backbone_features, lowlevel_features = self.backbone(x)
         aspp_features = self.aspp(backbone_features)
         h, w = aspp_features.shape[2:]
-        aspp_features = F.interpolate(aspp_features, size=(4 * h, 4 * w),
-                                      mode='bilinear', align_corners=True)
+        aspp_features = resize_bilinear_matmul(aspp_features, (4 * h, 4 * w))
         return torch.cat([aspp_features, self.shortcut_conv(lowlevel_features)], dim=1)
+
+
+class BilinearUpsample2x(nn.Module):
+    """x2 bilinear align-corners upsampling through the matmul resize (the
+    JAX package's decoder upsample), in ``nn.UpsamplingBilinear2d``'s place:
+    parameterless, so the Sequential's indices and state-dict names stay."""
+
+    def forward(self, x):
+        return resize_bilinear_matmul(x, (2 * x.shape[2], 2 * x.shape[3]))
 
 
 class SSSRDecoder(nn.Module):
@@ -86,7 +95,7 @@ class SSSRDecoder(nn.Module):
             *_conv_bn_relu(256, 256, 3), nn.Dropout(0.2))
         self.cls_conv = nn.Conv2d(256, num_classes, 1, bias=True)
         self.upsample16_pred = nn.Sequential(
-            nn.UpsamplingBilinear2d(scale_factor=2.0), nn.Dropout(0.2),
+            BilinearUpsample2x(), nn.Dropout(0.2),
             nn.ConvTranspose2d(num_classes, num_classes, 2, stride=2, bias=False),
             nn.BatchNorm2d(num_classes), nn.ReLU(inplace=True), nn.Dropout(0.2),
             nn.ConvTranspose2d(num_classes, num_classes, 2, stride=2, bias=True))

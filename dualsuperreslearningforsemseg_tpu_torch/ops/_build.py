@@ -9,12 +9,15 @@ edited source or shared header is rebuilt and a built one is reused.  Building n
 is compiled when a module is imported.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, 'csrc')
@@ -84,3 +87,29 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built kernel library for ``csrc/<name>.cu``, building it first if
     needed.  Loaded once per process."""
     return ctypes.CDLL(build_all((name,))[name])
+
+
+def declare(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    """Sets ``argtypes`` (and an int ``restype``) of each C function named
+    in ``signatures`` ({name: argtypes}); ctypes keeps them, so a wrapper
+    declares them once, where it loads the library, and not on every call."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def current_stream(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s card: what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a ``torch.cuda.Stream`` (about 6 us a call on an H100 host)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t):
+    """A context that makes ``t``'s card the current one for a launch; a
+    no-op when it already is (entering ``torch.cuda.device`` costs
+    microseconds a call)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -15,9 +15,12 @@ every parameter.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
+
+from ._build import declare, load_library
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _C_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -74,6 +77,11 @@ def _check(img_u8, taps, cmat, coff, out_dtype, unshuffle):
                                      tuple(t.shape), t.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _library():
+    return declare(load_library('augment_post'), {'dsrl_photometric': _C_SIGNATURE})
+
+
 def photometric(img_u8, taps, cmat, coff, out_dtype=torch.float32, unshuffle: int = 0):
     """img_u8 (B, H, W, 3) uint8; taps (B, 3) blur taps ((0, 1, 0) = no
     blur); cmat (B, 3, 3) colour matrix [c, d]; coff (B, 3) offset ->
@@ -87,9 +95,7 @@ def photometric(img_u8, taps, cmat, coff, out_dtype=torch.float32, unshuffle: in
     if img_u8.device.type != 'cuda':
         raise ValueError("photometric runs on CPU or CUDA tensors, got {}".format(img_u8.device))
     _check(img_u8, taps, cmat, coff, out_dtype, unshuffle)
-    from ._build import load_library
-    fn = load_library('augment_post').dsrl_photometric
-    fn.argtypes, fn.restype = _C_SIGNATURE, ctypes.c_int
+    fn = _library().dsrl_photometric
     b, h, w, _ = img_u8.shape
     out = torch.empty((b, 3, h, w), dtype=out_dtype, device=img_u8.device)
     r = unshuffle

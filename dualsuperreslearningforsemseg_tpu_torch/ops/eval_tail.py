@@ -20,11 +20,13 @@ exact only below 2^24 pixels).
 """
 
 import ctypes
+import functools
 
 import torch
 
 from ..losses.cross_entropy import cross_entropy_sum
 from ..metrics.device import argmax_lastdim, batch_histograms, batch_accuracy_counts
+from ._build import declare, load_library
 from .fused_tail import DTYPE_CODES, tail_logits_plain
 
 _C_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -62,6 +64,11 @@ def _check(x, weight, bias, labels):
         raise ValueError("eval_tail: labels must start at an even address (2-byte loads)")
 
 
+@functools.lru_cache(maxsize=None)
+def _library():
+    return declare(load_library('eval_tail'), {'dsrl_eval_tail': _C_SIGNATURE})
+
+
 def eval_tail(x, weight, bias, labels, ignore_label: int = 255):
     """x (B, C, H, W) float32 or bfloat16 pre-tail activation, weight (C, C, 2, 2) IOHW,
     bias (C,), labels (B, 2H, 2W) uint8 -> see the module docstring.
@@ -73,10 +80,8 @@ def eval_tail(x, weight, bias, labels, ignore_label: int = 255):
     if x.device.type != 'cuda':
         raise ValueError("eval_tail runs on CPU or CUDA tensors, got {}".format(x.device))
     _check(x, weight, bias, labels)
-    from ._build import load_library
-    lib = load_library('eval_tail')
+    lib = _library()
     fn = lib.dsrl_eval_tail
-    fn.argtypes, fn.restype = _C_SIGNATURE, ctypes.c_int
     b, c, h, w = x.shape
     if c != lib.dsrl_eval_tail_classes() or x.numel() == 0 or not 0 <= ignore_label < 256:
         raise ValueError("eval_tail kernel: needs {} classes, a non-empty batch and an "

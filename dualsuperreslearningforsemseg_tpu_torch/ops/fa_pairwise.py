@@ -23,13 +23,19 @@ version's bit for bit.
 """
 
 import ctypes
+import functools
 
 import torch
 
+from ._build import current_stream, declare, load_library, on_device
+
 _PAIRS_PER_TILE = 1 << 24
 _MAX_N = 1 << 24
-_FWD_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_BWD_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_SIGNATURES = {
+    'dsrl_fa_pairwise_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    'dsrl_fa_pairwise_bwd': [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    'dsrl_fa_pairwise_tiles': [ctypes.c_int],
+}
 
 
 def _i_tiles(a):
@@ -67,9 +73,16 @@ def _check(a, b):
                              .format(name, a.device, t.dtype, t.device))
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
-    from ._build import load_library
-    return load_library('fa_pairwise')
+    return declare(load_library('fa_pairwise'), _SIGNATURES)
+
+
+def cluster_blocks(rows, n):
+    """Blocks of the forward's cluster for ``rows`` rows of ``n``: enough for
+    about 512 blocks on the card (4 an SM), at most 8 (the portable cluster
+    size) and at most one per 32 values of j."""
+    return max(1, min(8, -(-512 // rows), n // 32))
 
 
 def fa_pairwise_forward(a, b):
@@ -78,17 +91,13 @@ def fa_pairwise_forward(a, b):
     :class:`AllPairsAbsSumRows`."""
     _check(a, b)
     rows, n = a.shape
-    lib = _library()
-    tiles = lib.dsrl_fa_pairwise_tiles(n)
-    if rows * tiles >= 2 ** 31:
+    cluster = cluster_blocks(rows, n)
+    if rows * cluster >= 2 ** 31:
         raise ValueError("fa_pairwise: {} rows of {} values need too many blocks".format(rows, n))
-    fn = lib.dsrl_fa_pairwise_fwd
-    fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
-    partials = torch.empty(rows * tiles, dtype=torch.float64, device=a.device)
-    out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(), rows, n,
-                 torch.cuda.current_stream().cuda_stream)
+    fn = _library().dsrl_fa_pairwise_fwd
+    out = a.new_empty(rows)
+    with on_device(a):
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, n, cluster, current_stream(a))
     if err:
         raise RuntimeError("fa_pairwise forward kernel launch failed: CUDA error {}".format(err))
     fa_pairwise_forward.launches += 1
@@ -108,13 +117,11 @@ def fa_pairwise_backward(a, b, g):
     lib = _library()
     if rows * lib.dsrl_fa_pairwise_tiles(n) >= 2 ** 31:
         raise ValueError("fa_pairwise: {} rows of {} values need too many blocks".format(rows, n))
-    fn = lib.dsrl_fa_pairwise_bwd
-    fn.argtypes, fn.restype = _BWD_SIGNATURE, ctypes.c_int
     da = torch.empty_like(a)
     db = torch.empty_like(b)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), g.data_ptr(), da.data_ptr(), db.data_ptr(), rows, n,
-                 torch.cuda.current_stream().cuda_stream)
+    with on_device(a):
+        err = lib.dsrl_fa_pairwise_bwd(a.data_ptr(), b.data_ptr(), g.data_ptr(), da.data_ptr(),
+                                       db.data_ptr(), rows, n, current_stream(a))
     if err:
         raise RuntimeError("fa_pairwise backward kernel launch failed: CUDA error {}".format(err))
     fa_pairwise_backward.launches += 1

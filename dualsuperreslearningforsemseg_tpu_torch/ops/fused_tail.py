@@ -22,11 +22,13 @@ dlogits, and dX rounded to bfloat16.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..losses.cross_entropy import cross_entropy_sum
+from ._build import declare, load_library
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype argument
 _FWD_SIGNATURE = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -124,9 +126,14 @@ def _check(x, weight, bias, labels, ignore_label):
         raise ValueError("fused tail kernel: needs a non-empty batch and an ignore label in [0, 256)")
 
 
+@functools.lru_cache(maxsize=None)
+def _declared_library():
+    return declare(load_library('fused_tail'), {'dsrl_fused_tail_fwd': _FWD_SIGNATURE,
+                                                'dsrl_fused_tail_bwd': _BWD_SIGNATURE})
+
+
 def _library(c):
-    from ._build import load_library
-    lib = load_library('fused_tail')
+    lib = _declared_library()
     if c != lib.dsrl_fused_tail_classes():
         raise ValueError("fused tail kernel: built for {} classes, got {}".format(
             lib.dsrl_fused_tail_classes(), c))
@@ -151,7 +158,6 @@ def fused_tail_forward(x, weight, bias, labels, ignore_label: int = 255):
     b, c, h, w = x.shape
     lib = _library(c)
     fn = lib.dsrl_fused_tail_fwd
-    fn.argtypes, fn.restype = _FWD_SIGNATURE, ctypes.c_int
     dtype = DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         grid = _grid(lib.dsrl_fused_tail_fwd_grid, dtype, b * h * w, 'forward')
@@ -179,7 +185,6 @@ def fused_tail_backward(x, weight, bias, labels, scale, ignore_label: int = 255)
     b, c, h, w = x.shape
     lib = _library(c)
     fn = lib.dsrl_fused_tail_bwd
-    fn.argtypes, fn.restype = _BWD_SIGNATURE, ctypes.c_int
     dtype = DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         grid = _grid(lib.dsrl_fused_tail_bwd_grid, dtype, b * h * w, 'backward')

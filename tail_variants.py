@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the tail kernels K3, K1 forward and K1 backward goes,
-on one GPU.
+on one GPU; and K4 against the parent's K4.
 
     python3 tail_variants.py [--parent DIR]
+    python3 tail_variants.py --k4 [--parent DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 Builds variants of ``csrc/eval_tail.cu`` (K3) and ``csrc/fused_tail.cu``
@@ -18,11 +19,22 @@ the unchanged build's from the same run.  ``--parent DIR`` also builds the
 the two forwards are compared on one card in one run.  Prints each build's
 ``-Xptxas -v`` summary, one line per timing, then the card's name and power
 limit and a JSON object of all the timings.
+
+``--k4`` times K4 (``csrc/fa_pairwise.cu``) instead: ``chip_smoke.py``'s
+K4 phase (correctness at every shape, then a wrapper call and a CUDA-graph
+replay of forward and backward at (8, 256) and (304, 1024)) of this
+checkout and of ``--parent`` in turns, parent, this, this, parent, each in
+a process of its own that builds its own kernel; then the host time of
+each part of the forward wrapper, and variants of ``fa_pairwise.cu``
+(``K4_VARIANTS``, edited copies under ``build/variants/k4/``) forward and
+backward replayed from CUDA graphs, the source as built at each cluster
+size 1, 2, 4 and 8, each checked against the plain version.
 """
 
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -106,15 +118,205 @@ def start_build(src_dir, kern, so):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
 
 
+K4_PHASE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+            "from dualsuperreslearningforsemseg_tpu_torch.ops._build import build_all; "
+            "from dualsuperreslearningforsemseg_tpu_torch.utils import select_device; "
+            "select_device('cuda'); build_all(('fa_pairwise',)); chip_smoke.k4_phase()")
+K4_LINE = re.compile(r"K4 at \((\d+), (\d+)\): forward ([\d.]+) ms \(replayed from a CUDA graph "
+                     r"([\d.]+) ms.*backward ([\d.]+) ms \(graph ([\d.]+) ms")
+
+
+K4_SIGN = ('__device__ __forceinline__ float sign_of(float x, float y) {\n'
+           '  return (float)(x > y) - (float)(x < y);')
+# K4 variants of csrc/fa_pairwise.cu: {name: [(text, replacement), ...]}.
+K4_VARIANTS = {
+    'as_built': [],
+    'runs_of_64': [('constexpr int kRunQuads = 8;', 'constexpr int kRunQuads = 16;')],
+    'e_2': [('constexpr int kE = 4;', 'constexpr int kE = 2;')],
+    'e_8': [('constexpr int kE = 4;', 'constexpr int kE = 8;')],
+    'threads_128': [('constexpr int kThreads = 256;', 'constexpr int kThreads = 128;')],
+    'int_counts': [(K4_SIGN, K4_SIGN.replace('float sign_of', 'int sign_of').replace('(float)', '(int)')),
+                   ('void sign_quad(float (&c)[kE]', 'void sign_quad(int (&c)[kE]'),
+                   ('float c[kE] = {};   // sums', 'int c[kE] = {};   // sums'),
+                   ('__shared__ float s_count', '__shared__ int s_count'),
+                   ('__fmul_rn(c[e], gr)', '__fmul_rn((float)c[e], gr)')],
+    # Signs on the FP32 pipe: both operands scaled by 2^22 (exact below
+    # 2^106), q = sat(fma(x - y, 2^127, 0.5)) in {0, 1/2, 1}, count =
+    # 2 sum(q) - n: three FP32 instructions a pair for the comparisons'
+    # four, two of them at half rate.
+    'fp32_signs': [(K4_SIGN, '__device__ __forceinline__ float sign_of(float x, float y) {\n'
+                             '  float q;\n  asm("fma.rn.sat.f32 %0, %1, %2, %3;" : "=f"(q) : '
+                             '"f"(x - y), "f"(0x1p127f), "f"(0.5f));\n  return q;'),
+                   ('for (int e = 0; e < kE; ++e) x[e] = i0 + e < n ? self[i0 + e] : 0.f;',
+                    'for (int e = 0; e < kE; ++e) x[e] = (i0 + e < n ? self[i0 + e] : 0.f) * 0x1p22f;'),
+                   ('    stage(s_o, other + c0, len);\n',
+                    '    __syncthreads();\n    for (int k = threadIdx.x; k < len; k += kThreads) '
+                    's_o[k] = other[c0 + k] * 0x1p22f;\n    __syncthreads();\n'),
+                   ('__fmul_rn(c[e], gr)', '__fmul_rn(2.f * c[e] - (float)n, gr)')],
+}
+
+
+def k4_variant_libs(csrc, out):
+    """Builds each K4 variant from an edited copy of csrc/fa_pairwise.cu;
+    returns {name: library with its C signatures declared}."""
+    from dualsuperreslearningforsemseg_tpu_torch.ops import _build, fa_pairwise
+    with open(os.path.join(csrc, 'fa_pairwise.cu')) as f:
+        source = f.read()
+    shutil.rmtree(out, ignore_errors=True)
+    procs = {}
+    for name, edits in K4_VARIANTS.items():
+        d = os.path.join(out, name)
+        os.makedirs(d)
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit("K4 variant {}: no {!r}".format(name, old[:60]))
+            text = text.replace(old, new)
+        with open(os.path.join(d, 'fa_pairwise.cu'), 'w') as f:
+            f.write(text)
+        procs[name] = start_build(d, 'fa_pairwise', os.path.join(d, 'fa_pairwise.so'))
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        kept = [line.strip() for line in log.splitlines() if 'registers' in line or 'spill' in line
+                or 'error' in line]
+        print("K4 variant {}: {}".format(name, ' | '.join(kept)), flush=True)
+        if not proc.returncode:
+            libs[name] = _build.declare(ctypes.CDLL(so), fa_pairwise._SIGNATURES)
+    return libs
+
+
+def k4_time(lib, a, b, g, cluster):
+    """(forward ms, backward ms) replayed from CUDA graphs, the forward's
+    largest relative error and whether da and db equal the plain version's."""
+    import torch
+    import chip_smoke
+    from dualsuperreslearningforsemseg_tpu_torch.ops import fa_pairwise
+    rows, n = a.shape
+    out, da, db = torch.empty(rows, device='cuda'), torch.empty_like(a), torch.empty_like(b)
+
+    def forward():
+        if lib.dsrl_fa_pairwise_fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, n, cluster,
+                                    torch.cuda.current_stream().cuda_stream):
+            raise SystemExit("K4 forward launch failed")
+
+    def backward():
+        if lib.dsrl_fa_pairwise_bwd(a.data_ptr(), b.data_ptr(), g.data_ptr(), da.data_ptr(),
+                                    db.data_ptr(), rows, n, torch.cuda.current_stream().cuda_stream):
+            raise SystemExit("K4 backward launch failed")
+
+    forward()
+    backward()
+    ref = fa_pairwise.fa_pairwise_forward_plain(a, b)
+    da_p, db_p = fa_pairwise.fa_pairwise_backward_plain(a, b, g)
+    rel = float(((out - ref).abs() / ref.abs()).max())
+    equal = bool(torch.equal(da, da_p) and torch.equal(db, db_p))
+    return chip_smoke.graph_ms(forward), chip_smoke.graph_ms(backward), rel, equal
+
+
+def k4_host_breakdown(a, b):
+    """Host microseconds a call of each part of the K4 forward wrapper, over
+    2000 calls (the kernel launches only in the whole call)."""
+    import time
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops import _build, fa_pairwise
+    lib = fa_pairwise._library()
+    rows, n = a.shape
+    ones = torch.ones(rows, device='cuda')
+
+    def enter_exit():
+        with _build.on_device(a):
+            pass
+
+    out, da, db = torch.empty(rows, device='cuda'), torch.empty_like(a), torch.empty_like(b)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, n, fa_pairwise.cluster_blocks(rows, n),
+            _build.current_stream(a))
+    bwd_args = (a.data_ptr(), b.data_ptr(), ones.data_ptr(), da.data_ptr(), db.data_ptr(), rows, n,
+                _build.current_stream(a))
+
+    parts = {
+        '_check': lambda: fa_pairwise._check(a, b),
+        'a.new_empty': lambda: a.new_empty(rows),
+        'on_device enter/exit': enter_exit,
+        'current_stream().cuda_stream': lambda: torch.cuda.current_stream().cuda_stream,
+        '_build.current_stream': lambda: _build.current_stream(a),
+        'a ctypes call (dsrl_fa_pairwise_tiles)': lambda: lib.dsrl_fa_pairwise_tiles(n),
+        'the C forward launch alone': lambda: lib.dsrl_fa_pairwise_fwd(*args),
+        'the C backward launch alone': lambda: lib.dsrl_fa_pairwise_bwd(*bwd_args),
+        'whole forward call': lambda: fa_pairwise.fa_pairwise_forward(a, b),
+        'whole backward call': lambda: fa_pairwise.fa_pairwise_backward(a, b, ones),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+        print("K4 host, {} at ({}, {}): {:.2f} us a call".format(name, rows, n, out[name]), flush=True)
+    return out
+
+
+def k4_main(parent):
+    import torch
+    import chip_smoke
+    from dualsuperreslearningforsemseg_tpu_torch.ops import _build, fa_pairwise
+    times = {}
+    roots = [parent, HERE, HERE, parent] if parent else [HERE]
+    for turn, root in enumerate(roots):
+        who = 'parent' if root == parent else 'this'
+        run = subprocess.run([sys.executable, '-c', K4_PHASE], cwd=root, capture_output=True,
+                             text=True, timeout=900)
+        print(run.stdout + run.stderr[-3000:], flush=True)
+        if run.returncode:
+            raise SystemExit("K4 phase of {} failed".format(root))
+        for m in K4_LINE.finditer(run.stdout):
+            key = '{} ({}, {}) turn {}'.format(who, m.group(1), m.group(2), turn)
+            times[key] = {'forward_ms': float(m.group(3)), 'forward_graph_ms': float(m.group(4)),
+                          'backward_ms': float(m.group(5)), 'backward_graph_ms': float(m.group(6))}
+    libs = k4_variant_libs(_build.CSRC_DIR, os.path.join(HERE, 'build', 'variants', 'k4'))
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for rows, n in ((8, 256), (304, 1024)):
+        a, b = chip_smoke.k4_case(gen, rows, n)
+        g = torch.rand(rows, generator=gen, device='cuda') + 0.5
+        times['host ({}, {})'.format(rows, n)] = k4_host_breakdown(a, b)
+        chosen = fa_pairwise.cluster_blocks(rows, n)
+        for name, lib in libs.items():
+            for cluster in ((1, 2, 4, 8) if name == 'as_built' else (chosen,)):
+                fwd, bwd, rel, equal = k4_time(lib, a, b, g, cluster)
+                times['{} ({}, {}) cluster {}'.format(name, rows, n, cluster)] = {
+                    'forward_graph_ms': fwd, 'backward_graph_ms': bwd, 'rel_err': rel,
+                    'grads_equal': equal}
+                print("K4 {} at ({}, {}), cluster of {}{}: forward {:.5f} ms, backward {:.5f} ms "
+                      "device (graph); forward rel err {:.2e}, da and db equal to plain: {}".format(
+                          name, rows, n, cluster, " (the wrapper's)" if cluster == chosen else "",
+                          fwd, bwd, rel, equal), flush=True)
+    return times
+
+
 def main():
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--parent', help="a checkout whose K1 forward is timed beside this one's")
+    parser.add_argument('--parent', help="a checkout whose K1 forward (with --k4: K4) is timed "
+                                         "beside this one's")
+    parser.add_argument('--k4', action='store_true', help="time K4 instead of the tail kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tail_variants: torch sees no CUDA device")
     sys.path.insert(0, HERE)
+    if args.k4:
+        from dualsuperreslearningforsemseg_tpu_torch.utils import select_device
+        select_device('cuda')
+        times = k4_main(os.path.abspath(args.parent) if args.parent else None)
+        smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        print(smi, flush=True)
+        print(json.dumps(times), flush=True)
+        return
     import chip_smoke
     from dualsuperreslearningforsemseg_tpu_torch.ops import _build
     from dualsuperreslearningforsemseg_tpu_torch.ops.eval_tail import _C_SIGNATURE as K3_SIGNATURE

@@ -32,16 +32,17 @@ device.  Run on the GPU machine with
   Its unshuffled second output (``unshuffle=8``) is bit-exact with
   ``F.pixel_unshuffle`` of the plain planar output in float32, and its
   planar output is the one-output launch's.
-* K4 (FA all-pairs), forward and backward, at (8, 256) and (3, 100), on
-  rows with exact ties: sums within rel 1e-5, da and db bit-equal to the
-  plain version (integer sign counts times g), two launches bit-identical,
-  and ``fa_loss`` on CUDA maps launches it.
+* K4 (FA all-pairs), forward and backward, at (8, 256), (3, 100),
+  (304, 1024) and the ragged and cluster-boundary shapes (5, 2049), (2, 1)
+  and (1, 8192), on rows with exact ties: sums within rel 1e-5, da and db
+  bit-equal to the plain version (integer sign counts times g), two
+  launches bit-identical, and ``fa_loss`` on CUDA maps launches it.
 * The warp (plain PyTorch) on the card equals its CPU run.
-* Run-to-run determinism: one stage-1 train step at the CPU suite's small
-  depth, after a warm-up step (cuDNN's autotuner has chosen), run twice
-  from the same saved model, optimizer and generator state with the
-  port's device settings (``select_device``): losses and every state
-  tensor bitwise equal (tests/test_torch_determinism.py).
+* Run-to-run determinism: one stage-1 and one stage-3 train step at the
+  CPU suite's small depth, after a warm-up step (cuDNN's autotuner has
+  chosen), run twice from the same saved model, optimizer and generator
+  state with the port's device settings (``select_device``): losses and
+  every state tensor bitwise equal (tests/test_torch_determinism.py).
 """
 
 import numpy as np
@@ -315,7 +316,7 @@ def test_photometric_unshuffled_output(cuda, dtype):
         assert bool(((un.float() - ref.float()).abs() <= ulp).all())
 
 
-@pytest.mark.parametrize('shape', [(8, 256), (3, 100)])
+@pytest.mark.parametrize('shape', [(8, 256), (3, 100), (304, 1024), (5, 2049), (2, 1), (1, 8192)])
 def test_fa_pairwise_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(16)
     a, b = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
@@ -363,5 +364,6 @@ def test_warp_on_the_card_matches_its_cpu_run(cuda):
     assert torch.equal(seg_g.cpu(), seg_c)
 
 
-def test_train_step_is_bitwise_deterministic_on_the_card(cuda):
-    assert_bitwise_equal(*repeated_step(select_device('cuda'), stage=1))
+@pytest.mark.parametrize('stage', [1, 3])
+def test_train_step_is_bitwise_deterministic_on_the_card(cuda, stage):
+    assert_bitwise_equal(*repeated_step(select_device('cuda'), stage=stage))
