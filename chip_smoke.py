@@ -93,7 +93,20 @@ nothing of JAX.  Phases, each fatal on failure:
    warm-up step, then two full-depth train steps at batch 8 from the same
    saved model, optimizer, generator and CUDA RNG state with
    ``select_device``'s settings (live dropout and BatchNorm): the losses
-   and every state tensor bitwise equal.
+   and every state tensor bitwise equal;
+12. training state: ``train --stage 3 --epochs 2 --val-interval 1
+   --checkpoint-interval 1 --checkpoint-history 2`` from phase 9's stage-2
+   weights in a new experiment, counts reset before and read after (twice
+   phase 9's stage-3 counts), must leave ``epoch1.checkpoint``,
+   ``epoch2.checkpoint``, one ``*_bestval.checkpoint``, ``params.txt``,
+   ``stdout.txt`` and a train and a val log (event files, or JSONL where
+   ``tensorboard`` is missing; which is printed), with each save's size and
+   seconds; then ``resume-train`` from ``epoch1.checkpoint`` twice, each
+   with one epoch's counts (phase 9's), "EPOCH 2/2" and no "EPOCH 1/2" in
+   its ``stdout.txt``, its checkpoint read and first step timed, and the
+   two ``final.weights`` bitwise equal; then the checkpoint's momentum,
+   restored into ``DSRL(stage=3)`` + SGD on the card and exported again,
+   bitwise equal to the file's.
 
 Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
 TB/s and its operations over the card's peak for their type: the 19x19
@@ -1215,6 +1228,135 @@ def determinism_phase(device_name, weights, stage):
         fail("two stage-{} train steps from one state are not bitwise equal: {}".format(stage, out))
 
 
+def _same_arrays(a, b):
+    """Names whose arrays differ in dtype, shape or any bit."""
+    import numpy as np
+    differ = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            differ.append(k)
+    return differ
+
+
+def state_phase(device_name, counts3):
+    """Autosaved and best-validation checkpoints at stage 3, two resumes from
+    one of them and the momentum restored on the card (phase 12)."""
+    import importlib
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main as cli_main
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    engine = importlib.import_module('dualsuperreslearningforsemseg_tpu_torch.commands.train_or_resume')
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, load_state_dict
+    from dualsuperreslearningforsemseg_tpu_torch.train import (
+        make_sgd, load_optimizer_state_dict, optimizer_state_dict)
+    t_phase = time.time()
+    exp = os.path.join('experiments', 'smoke_state')
+    ckdir = os.path.join(exp, 'weights', 'stage3', 'checkpoints')
+    logs = os.path.join(exp, 'logs', 'stage3')
+    fns = reset_counts()
+    res = cli_main(['train', '--stage', '3', '--epochs', '2', '--batch-size', '8', '--dataset',
+                    'cityscapes', '--val-interval', '1', '--checkpoint-interval', '1',
+                    '--checkpoint-history', '2', '--init-weights',
+                    os.path.join('experiments', 'smoke', 'weights', 'stage2', 'final.weights'),
+                    '--experiment-id', 'smoke_state'])
+    counts = {name: fn.launches for name, fn in fns.items()}
+    want = {k: 2 * v for k, v in counts3.items()}
+    print("train --stage 3 --epochs 2 with autosaves on {}: {:.2f} s end to end, launches {}".format(
+        device_name, res['seconds'], json.dumps(counts)), flush=True)
+    if counts != want:
+        fail("two epochs launched {} (want {})".format(counts, want))
+    for c in res['checkpoints']:
+        print("checkpoint {}: {} bytes ({:.1f} MiB), saved in {:.3f} s (state to the host + "
+              "zip write)".format(c['path'], c['bytes'], c['bytes'] / 2 ** 20, c['seconds']), flush=True)
+    names = sorted(os.listdir(ckdir))
+    bestval = [n for n in names if n.endswith('_bestval.checkpoint')]
+    log_files = {mode: sorted(os.listdir(os.path.join(logs, mode))) for mode in ('train', 'val')}
+    formats = {mode: ('event files' if any(f.startswith('events.out.tfevents.') for f in files)
+                      else 'JSONL' if 'events.jsonl' in files else None)
+               for mode, files in log_files.items()}
+    print("checkpoints {}; logs {}; train log {}, val log {}".format(
+        names, json.dumps(log_files), formats['train'], formats['val']), flush=True)
+    if not {'epoch1.checkpoint', 'epoch2.checkpoint'} <= set(names) or len(bestval) != 1 \
+            or not {'params.txt', 'stdout.txt'} <= set(log_files['train']) or None in formats.values():
+        fail("training state files missing: {} {}".format(names, log_files))
+
+    epoch1 = os.path.join(ckdir, 'epoch1.checkpoint')
+    final = os.path.join(exp, 'weights', 'stage3', 'final.weights')
+    first_step = {}
+    make_step = engine.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(*step_args):
+            if 'seconds' in first_step:
+                return step(*step_args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*step_args)
+            torch.cuda.synchronize()
+            first_step['seconds'] = time.perf_counter() - t0
+            return out
+        return timed
+
+    finals = []
+    for run in (1, 2):
+        first_step.clear()
+        fns = reset_counts()
+        engine.make_train_step = timed_make_train_step
+        try:
+            res = cli_main(['resume-train', '--checkpoint', epoch1, '--dataset', 'cityscapes'])
+        finally:
+            engine.make_train_step = make_step
+        counts = {name: fn.launches for name, fn in fns.items()}
+        with open(os.path.join(logs, 'train', 'stdout.txt')) as f:
+            stdout = f.read()
+        print("resume-train {} from {} on {}: {:.2f} s end to end, first resumed step {:.3f} s, "
+              "launches {}".format(run, epoch1, device_name, res['seconds'], first_step['seconds'],
+                                   json.dumps(counts)), flush=True)
+        if counts != counts3 or res['starting_epoch'] != 1:
+            fail("resume {} launched {} (want {}), started after epoch {}".format(
+                run, counts, counts3, res['starting_epoch']))
+        if 'EPOCH 2/2' not in stdout or 'EPOCH 1/2' in stdout:
+            fail("resume {} did not run epoch 2 alone".format(run))
+        finals.append(load_checkpoint_or_weights(final)['model_state_dict'])
+    differ = _same_arrays(*finals)
+    print("the two resumes' final.weights: {} tensors, {} differ".format(len(finals[0]), len(differ)),
+          flush=True)
+    if differ:
+        fail("two resumes from one checkpoint differ in {}".format(differ[:8]))
+
+    t0 = time.perf_counter()
+    ckpt = load_checkpoint_or_weights(epoch1)
+    read_s = time.perf_counter() - t0
+    model = DSRL(num_classes=NUM_CLASSES, stage=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_state_dict(model, ckpt['model_state_dict'], strict=True)
+    model.to(torch.device('cuda'))
+    optimizer = make_sgd(model, ckpt['learning_rate'], ckpt['momentum'], ckpt['weights_decay'])
+    load_optimizer_state_dict(optimizer, model, ckpt['optimizer_state_dict'])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved = ckpt['optimizer_state_dict']['momentum_buffers']
+    again = optimizer_state_dict(optimizer, model, ckpt['learning_rate'], ckpt['momentum'],
+                                 ckpt['weights_decay'])['momentum_buffers']
+    differ = _same_arrays(saved, again)
+    nonzero = sum(bool(np.any(v)) for v in saved.values())
+    n_param = sum(p.numel() for p in model.parameters())
+    n_buffer = sum(b.numel() for b in model.buffers() if b.is_floating_point())
+    print("checkpoint read {:.3f} s, restored onto the card (model + momentum) {:.3f} s; "
+          "{} momentum buffers ({} non-zero), {} differ from the file's; {} parameters, {} float "
+          "BN buffers ({:.1f} MiB of float32 state with the momentum); phase {:.1f} s".format(
+              read_s, restore_s, len(saved), nonzero, len(differ), n_param, n_buffer,
+              (2 * n_param + n_buffer) * 4 / 2 ** 20, time.time() - t_phase), flush=True)
+    if differ or len(saved) != len(list(model.parameters())) or not nonzero:
+        fail("restored momentum is not the file's: {} differ, {} of {} buffers".format(
+            differ[:8], len(saved), len(list(model.parameters()))))
+
+
 def ptxas_report(log):
     """{mangled kernel name: 'N registers, B bytes smem, S bytes spill
     stores/loads'} from an ``-Xptxas -v`` log."""
@@ -1323,6 +1465,7 @@ def main():
         rec['launches'] = counts[rec['name']]
     train_step_phase(name, weights3, 3)
     determinism_phase(name, weights3, 3)
+    state_phase(name, counts)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -3,32 +3,45 @@
     python -m dualsuperreslearningforsemseg_tpu_torch train --stage 1 --epochs N --dataset cityscapes --experiment-id X
     python -m dualsuperreslearningforsemseg_tpu_torch train --stage 2 --epochs N --dataset cityscapes --experiment-id X
     python -m dualsuperreslearningforsemseg_tpu_torch train --stage 3 --epochs N --dataset cityscapes --experiment-id X
+    python -m dualsuperreslearningforsemseg_tpu_torch resume-train --checkpoint C --dataset cityscapes
+    python -m dualsuperreslearningforsemseg_tpu_torch config-train --file train_stage1_cmdline.json
     python -m dualsuperreslearningforsemseg_tpu_torch benchmark --weights W --dataset cityscapes val
     python -m dualsuperreslearningforsemseg_tpu_torch test --image-file IMG --weights W
 
-The ``train``, ``benchmark`` and ``test`` subcommands take the arguments of
-``main.py``'s (reference main.py:112-208), with ``cuda`` (the default) and
-``cpu`` as the devices.  ``train`` runs stages 1, 2 and 3; stage k >= 2
-warm-starts from stage k-1's ``final.weights`` in the same experiment, so
-an existing experiment directory is taken at stages 2 and 3 (the JAX CLI
-refuses any existing one, so its cascade finds no earlier stage inside an
-experiment).  The options ``train`` does not port yet
-(``--early-stopping``, ``--distributed``, ``--profile``, ``--dry-run``,
-``--debug-nans``) exit with an error naming the ROADMAP queue.  ``test``'s
-dataset mode and ``--compiled-model`` are not ported yet.
+The subcommands take the arguments of ``main.py``'s (reference
+main.py:112-208), with ``cuda`` (the default) and ``cpu`` as the devices.
+``train`` runs stages 1, 2 and 3; stage k >= 2 warm-starts from stage
+k-1's ``final.weights`` in the same experiment, so an existing experiment
+directory is taken at stages 2 and 3 (the JAX CLI refuses any existing
+one, so its cascade finds no earlier stage inside an experiment).
+``resume-train`` takes every setting from the checkpoint (main.py:76-80
+there), its device mapped by ``settings.port_device``: a JAX-era
+checkpoint of ``tpu`` resumes on the card.  ``config-train`` turns each key
+of a JSON file into ``--key value`` of a ``train`` run in a spawned child
+process, the device mapped alike, and exits with the child's code.
+``train`` and ``resume-train`` tee their output to
+``<experiment>/logs/stage{k}/train/stdout.txt``; ``--profile`` (``train``,
+``test``) runs the command under ``torch.profiler`` and writes a Chrome
+trace into ``outputs/profile``.  ``--distributed`` exits with an error
+naming the ROADMAP queue.  ``test``'s dataset mode and
+``--compiled-model`` are not ported yet.
 """
 
 import argparse
+import json
+import multiprocessing
 import os.path
 import shutil
 import sys
 
 from . import settings
-from .utils import (CAUTION, FATAL, INVALID_FILENAME_CHARS, hasExtension, isInvalidFilename,
-                    ValidateDatasetNameAndSplit)
+from .utils import (CAUTION, FATAL, INFO, INVALID_FILENAME_CHARS, OverridePrintWithTQDMWriteAndLog,
+                    hasExtension, isInvalidFilename, ValidateDatasetNameAndSplit)
 
-# train options of main.py that the port does not have yet (ROADMAP.md queue 3)
-_NOT_PORTED = ('early_stopping', 'distributed', 'profile', 'dry_run', 'debug_nans')
+# options of main.py that the port does not have yet (ROADMAP.md queue 1)
+_NOT_PORTED = ('distributed',)
+_DISTRIBUTED_METAVAR = ('MASTER_ADDR', 'MASTER_PORT', 'NODES', 'DEVICES_PER_NODE', 'BACKEND',
+                        'INIT_METHOD', 'NODE_ID')
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,15 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     train_parser = commands.add_parser('train', help="Train a stage of the DSRL model")
     train_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the model trains on (cuda or cpu)")
-    train_parser.add_argument('--distributed', required=False, nargs=7, metavar=('MASTER_ADDR', 'MASTER_PORT', 'NODES', 'DEVICES_PER_NODE', 'BACKEND', 'INIT_METHOD', 'NODE_ID'), help="Multi-process training topology (not ported yet)")
+    train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, help="Multi-process training topology (not ported yet)")
     train_parser.add_argument('--mixed-precision', default=settings.DEFAULT_AMP_OPTIMIZATION_OPTION, type=str.upper, choices=[x for x in settings.AMP_OPTIMIZATION_OPTIONS if x], help="bf16 autocast with float32 parameters; apex opt-level strings (O0-O3) are accepted and mapped")
     train_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
-    train_parser.add_argument('--profile', action='store_true', help="Profile the run (not ported yet)")
+    train_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
     train_parser.add_argument('--num-workers', default=settings.DEFAULT_NUM_WORKERS, type=int, help="Worker processes decoding input batches")
     train_parser.add_argument('--dataset', required=True, type=str.casefold, choices=settings.DATASETS.keys(), help="Registered dataset to train on")
     train_parser.add_argument('--val-interval', default=settings.DEFAULT_VAL_INTERVAL, type=int, help="Run validation every N epochs")
-    train_parser.add_argument('--checkpoint-interval', default=settings.DEFAULT_CHECKPOINT_INTERVAL, type=int, help="Autosave a full checkpoint every N epochs (checkpoints are not ported yet)")
-    train_parser.add_argument('--checkpoint-history', default=settings.DEFAULT_CHECKPOINT_HISTORY, type=int, help="How many autosaved checkpoints to retain (checkpoints are not ported yet)")
+    train_parser.add_argument('--checkpoint-interval', default=settings.DEFAULT_CHECKPOINT_INTERVAL, type=int, help="Autosave a full checkpoint every N epochs")
+    train_parser.add_argument('--checkpoint-history', default=settings.DEFAULT_CHECKPOINT_HISTORY, type=int, help="How many autosaved checkpoints to retain (older ones are pruned); 0 disables autosaving")
     train_parser.add_argument('--init-weights', default=None, type=str, help="Warm-start the model from this .checkpoint/.weights file")
     train_parser.add_argument('--batch-size', default=settings.DEFAULT_BATCH_SIZE, type=int, help="Samples per step")
     train_parser.add_argument('--epochs', required=True, type=int, help="Total epochs to train for")
@@ -60,12 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
     train_parser.add_argument('--w1', type=float, default=settings.DEFAULT_LOSS_WEIGHTS[0], help="SISR MSE loss weight (stage >= 2)")
     train_parser.add_argument('--w2', type=float, default=settings.DEFAULT_LOSS_WEIGHTS[1], help="Feature-affinity loss weight (stage 3)")
     train_parser.add_argument('--freeze-batch-norm', action='store_true', help="Use running statistics in every BatchNorm during training (no stat updates)")
-    train_parser.add_argument('--experiment-id', type=str, default='', help="Name for this run; weights land under experiments/<id>/")
-    train_parser.add_argument('--description', type=str, default=None, help="Free-text note about the run")
-    train_parser.add_argument('--early-stopping', action='store_true', help="Stop once average training loss drops below average validation loss (not ported yet)")
-    train_parser.add_argument('--dry-run', action='store_true', help="Skip the network entirely (not ported yet)")
-    train_parser.add_argument('--debug-nans', action='store_true', help="Raise on the first NaN (not ported yet)")
+    train_parser.add_argument('--experiment-id', type=str, default='', help="Name for this run; weights and logs land under experiments/<id>/")
+    train_parser.add_argument('--description', type=str, default=None, help="Free-text note recorded in the run's params.txt")
+    train_parser.add_argument('--early-stopping', action='store_true', help="Stop the run once average training loss drops below average validation loss")
+    train_parser.add_argument('--dry-run', action='store_true', help="Skip the network entirely (random outputs) to exercise the engine around it")
+    train_parser.add_argument('--debug-nans', action='store_true', help="Raise at the first non-finite loss, and run backward under autograd's anomaly detection")
     train_parser.add_argument('--yes', action='store_true', help="Assume 'yes' for interactive confirmations (non-interactive runs)")
+
+    config_train_parser = commands.add_parser('config-train', help="Launch 'train' with options taken from a JSON config file")
+    config_train_parser.add_argument('--file', required=True, type=str, help="JSON file whose keys/values become 'train' command-line options")
+
+    resume_train_parser = commands.add_parser('resume-train', help="Continue an interrupted run from its autosaved checkpoint")
+    resume_train_parser.add_argument('--checkpoint', required=True, type=str, help="The .checkpoint file to continue training from (hyperparameters come from it)")
+    resume_train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, help="Multi-process training topology (not ported yet)")
+    resume_train_parser.add_argument('--dataset', required=True, type=str.casefold, choices=settings.DATASETS.keys(), help="Registered dataset to train on")
 
     test_parser = commands.add_parser('test', help="Run inference and save colorized segmentation visualizations")
     test_source = test_parser.add_mutually_exclusive_group(required=True)
@@ -75,6 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     test_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file")
     test_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the model runs on (cuda or cpu)")
     test_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
+    test_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
     test_parser.add_argument('--show', action='store_true', help="Open the visualization in the system image viewer after saving it")
 
     benchmark_parser = commands.add_parser('benchmark', help="Evaluate weights over a dataset split (CE, mIoU, accuracy, throughput)")
@@ -87,8 +109,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _refuse_unported(args):
+    for name in _NOT_PORTED:
+        if getattr(args, name, None):
+            raise argparse.ArgumentTypeError("--{} is not ported yet (ROADMAP.md queue 1).".format(
+                name.replace('_', '-')))
+
+
 def _validate_train(args):
-    """Post-parse checks of ``train`` (parity: main.py:229-268), then the
+    """Post-parse checks of ``train`` (parity: main.py:229-268), and the
     options the port does not have yet.  May clear an earlier run of the
     same stage after confirmation, as main.py does."""
     if not args.num_workers >= 0:
@@ -113,10 +142,7 @@ def _validate_train(args):
                        ('weights_decay', '--weights-decay'), ('poly_power', '--poly-power')):
         if not getattr(args, name) > 0.:
             raise argparse.ArgumentTypeError("{} must be > 0.".format(flag))
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            raise argparse.ArgumentTypeError("--{} is not ported yet (ROADMAP.md queue 3).".format(
-                name.replace('_', '-')))
+    _refuse_unported(args)
     if args.experiment_id:
         if isInvalidFilename(args.experiment_id):
             raise argparse.ArgumentTypeError("--experiment-id may not contain any of: {}.".format(
@@ -133,11 +159,47 @@ def _validate_train(args):
         shutil.rmtree(weights_dir)
 
 
+def _validate_resume(args):
+    """Post-parse checks of ``resume-train`` (parity: main.py:293-305)."""
+    _refuse_unported(args)
+    if not hasExtension(args.checkpoint, '.checkpoint'):
+        raise argparse.ArgumentTypeError("resume-train needs a full .checkpoint file (model + optimizer + engine state), not a .weights file.")
+    if not os.path.isfile(args.checkpoint):
+        raise argparse.ArgumentTypeError("No such checkpoint file: '{}'.".format(args.checkpoint))
+
+
+def _config_train_argv(filename):
+    """``config-train``'s ``train`` arguments (parity: main.py:270-283):
+    each top-level JSON key and value becomes ``--key value``, the device
+    mapped to the port's (``settings.port_device``)."""
+    if not os.path.isfile(filename):
+        raise argparse.ArgumentTypeError("No such config file: '{}'.".format(filename))
+    try:
+        with open(filename) as config_file:
+            config = json.load(config_file)
+    except json.JSONDecodeError as ex:
+        raise argparse.ArgumentTypeError("'{}' is not valid JSON: {}".format(filename, ex))
+    argv = ['train']
+    for key, value in config.items():
+        if key == 'device':
+            try:
+                value = settings.port_device(value)
+            except ValueError as ex:
+                raise argparse.ArgumentTypeError(str(ex))
+        argv += ['--' + key, str(value)]
+    return argv
+
+
 def _validate(args):
     """Post-parse checks (parity: main.py:229-354); raises
     argparse.ArgumentTypeError with the JAX CLI's messages."""
     if args.command == 'train':
         return _validate_train(args)
+    if args.command == 'resume-train':
+        return _validate_resume(args)
+    if args.command == 'config-train':
+        args.train_argv = _config_train_argv(args.file)
+        return
     if not any(hasExtension(args.weights, x) for x in ['.checkpoint', '.weights']):
         raise argparse.ArgumentTypeError("--weights expects a .checkpoint or .weights file.")
     if not os.path.isfile(args.weights):
@@ -154,9 +216,41 @@ def _validate(args):
             raise argparse.ArgumentTypeError("--batch-size must be a positive integer.")
 
 
+def _config_train_child(argv):
+    """The ``train`` run of ``config-train``, in the spawned child."""
+    main(argv)
+
+
+def _train_or_resume(kwargs):
+    """``train`` and ``resume-train`` with their output teed to the stage's
+    ``stdout.txt`` (parity: main.py:94-107)."""
+    from . import commands
+    logs_dir = os.path.join(kwargs['experiment_id'],
+                            settings.LOGS_DIR.format(stage=kwargs['stage'], mode='train'))
+    os.makedirs(logs_dir, exist_ok=True)
+    with OverridePrintWithTQDMWriteAndLog(os.path.join(logs_dir, settings.STDOUT_FILE)) as stdout:
+        try:
+            return commands.train_or_resume(
+                is_resuming_training=kwargs['command'] == 'resume-train', **kwargs)
+        except KeyboardInterrupt:
+            stdout.write("Caught Ctrl+c to interrupt training!")
+            raise
+        except Exception as ex:
+            stdout.write("Exception caught: {}".format(str(ex)))
+            raise
+
+
+def _run(kwargs):
+    if kwargs['command'] in ('train', 'resume-train'):
+        return _train_or_resume(kwargs)
+    from . import commands
+    return getattr(commands, kwargs['command'])(**kwargs)
+
+
 def main(argv=None):
     """Parses ``argv`` (default: ``sys.argv[1:]``) and runs the command;
-    returns what the command returns.  Invalid arguments exit with code 2."""
+    returns what the command returns.  Invalid arguments exit with code 2;
+    ``config-train`` exits with its child's code."""
     parser = build_parser()
     args = parser.parse_args(argv)
     try:
@@ -165,14 +259,36 @@ def main(argv=None):
         print(FATAL(str(ex)))
         parser.print_usage()
         sys.exit(2)
+    if args.command == 'config-train':
+        child = multiprocessing.get_context('spawn').Process(target=_config_train_child,
+                                                             args=(args.train_argv,))
+        try:
+            child.start()
+            child.join()
+        except KeyboardInterrupt:
+            sys.exit(0)
+        sys.exit(child.exitcode)
     kwargs = vars(args)
+    if args.command == 'resume-train':
+        from .checkpoint import load_checkpoint_or_weights
+        checkpoint = load_checkpoint_or_weights(args.checkpoint)
+        for variable in settings.VARIABLES_IN_CHECKPOINT:
+            kwargs[variable] = checkpoint[variable]
+        kwargs['device'] = settings.port_device(kwargs['device'])
     if args.command == 'benchmark':
         name, split = args.dataset
         kwargs['dataset'] = dict(settings.DATASETS[name], name=name, split=split)
-    elif args.command == 'train':
+    elif args.command in ('train', 'resume-train'):
         kwargs['dataset'] = dict(settings.DATASETS[args.dataset], name=args.dataset, split='train')
-    from . import commands
-    return getattr(commands, args.command)(**kwargs)
+    if not kwargs.get('profile'):
+        return _run(kwargs)
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(settings.PROFILING_DIR, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = _run(kwargs)
+    prof.export_chrome_trace(os.path.join(settings.PROFILING_DIR, settings.PROFILING_FILE))
+    print(INFO("Profiling output has been saved to '{:s}'.".format(settings.PROFILING_DIR)))
+    return result
 
 
 if __name__ == '__main__':

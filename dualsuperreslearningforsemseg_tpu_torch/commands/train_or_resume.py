@@ -1,35 +1,48 @@
-"""`train` command, stages 1 to 3: the JAX package's training engine
-(commands/train_or_resume.py:90-607 there) as far as the three stages need it.
+"""`train` and `resume-train`, stages 1 to 3: the JAX package's training
+engine (commands/train_or_resume.py:90-778 there) on one device.
 
 * Model: ``DSRL(stage=stage)`` with the seeded Kaiming init from
-  ``RANDOM_SEED``, then ``--init-weights`` (``strict=False``); without it,
-  stage 1 loads the pretrained ResNet-101 backbone when
+  ``RANDOM_SEED``.  A resume loads the checkpoint's ``model_state_dict``
+  with ``strict=True`` and its momentum (train/optim.py, either layout),
+  and starts after the checkpoint's ``epoch`` with its
+  ``best_validation_dict``.  Otherwise ``--init-weights`` (``strict=False``);
+  without it, stage 1 loads the pretrained ResNet-101 backbone when
   ``weights/resnet101_pretrained.pth`` exists (never downloaded), and
   stages 2 and 3 warm-start from the previous stage's
   ``<experiment>/weights/stage{k-1}/final.weights`` (``strict=False``), or,
   where that file is missing, fall back to the pretrained backbone with a
-  CAUTION (train_or_resume.py:134-155 there).
+  CAUTION (train_or_resume.py:128-163 there).
 * Seeds: ``nn.Dropout`` draws from torch's default generators, seeded with
   ``RANDOM_SEED + 1000 * (starting_epoch + 1)`` (train_or_resume.py:270
   there); the photometric draws from a generator on the device seeded with
-  that value plus one.
+  that value plus one.  ``PolynomialLR`` starts at ``last_epoch =
+  starting_epoch - 1``, so a resumed epoch has the uninterrupted run's
+  learning rate.
 * Each step: the loader's uint8 batch goes to the device, is warped there
   with the JAX package's matrices for (epoch, batch) (data/augment.py), and
   the train step (train/steps.py) runs K2 (at stages 2-3 emitting the
   unshuffled SISR target too), the forward, K1 forward and backward, the
   MSE and, at stage 3, K4 forward and backward, and SGD.  Losses are read
   one step late, so the host does not wait for the step it just queued.
-* ``PolynomialLR`` steps once per epoch; validation every ``--val-interval``
-  epochs runs the eval step (K3, and K4 at stage 3), the eval loader and the
-  host metrics.  The averages print as the JAX engine prints them.
-* ``final.weights`` is written under ``<experiment>/weights/stage{k}/``.
-
-Not ported yet (ROADMAP.md queue 3): autosaved and best-validation
-``.checkpoint`` files, TensorBoard logs and ``params.txt``, ``resume-train``,
-early stopping, ``--distributed``, ``--profile``, ``--dry-run``,
-``--debug-nans``.
+  ``--dry-run`` and ``--debug-nans``: train/steps.py.
+* Each epoch: the averages print as the JAX engine prints them and go to
+  the train ``SummaryWriter`` (utils/tb_writer.py) under
+  ``<experiment>/logs/stage{k}/train``; every ``--checkpoint-interval``
+  epochs (``--checkpoint-history`` > 0) the full state is autosaved as
+  ``epoch{N}.checkpoint`` under ``<experiment>/weights/stage{k}/checkpoints``
+  and the one ``history * interval`` epochs older is removed.  Validation
+  every ``--val-interval`` epochs runs the eval step (K3, and K4 at stage
+  3), logs its scalars and one example image to the val writer, replaces
+  ``epoch{N}_bestval.checkpoint`` when the mIoU improves, and with
+  ``--early-stopping`` ends the run once the average training loss is below
+  the validation loss.
+* The state leaves the device once per save (parameters, BN buffers and
+  momentum: about 457 MiB at stage 3), never inside the step loop.
+  ``final.weights`` is written at the end, also after an early stop, and
+  ``params.txt`` at the start.
 """
 
+import glob
 import os.path
 from datetime import datetime
 
@@ -37,52 +50,73 @@ import numpy as np
 import torch
 
 from .. import settings
-from ..checkpoint import load_checkpoint_or_weights, save_weights
+from ..checkpoint import load_checkpoint_or_weights, save_checkpoint, save_weights
 from ..data import (AugmentConfig, make_warp_transform, make_device_post_fn, make_train_loader,
                     make_eval_transform_fn, make_eval_loader)
 from ..metrics import mIoU, Accuracy, AverageMeter
 from ..models import DSRL, PolynomialLR, init_weights as init_model, load_pretrained_backbone, \
     load_state_dict
 from ..models.dsrl import SISR_UPSCALE
-from ..train import make_train_step, make_eval_step, make_sgd
+from ..ops.colorize import make_input_output_visualization
+from ..train import make_train_step, make_eval_step, make_sgd, load_optimizer_state_dict, \
+    optimizer_state_dict
 from ..utils import INFO, CAUTION, FATAL, select_device, device_description, makeSecondsPretty
+from ..utils.tb_writer import SummaryWriter
 
 LOSS_NAMES = ('CE', 'MSE', 'FA', 'Total')
+# The checkpoint entries of the last train and validation averages, in LOSS_NAMES order.
+TRAIN_LOSS_KEYS = ('CE_train_avg_loss', 'MSE_train_avg_loss', 'FA_train_avg_loss', 'Avg_train_loss')
+VAL_LOSS_KEYS = ('CE_val_avg_loss', 'MSE_val_avg_loss', 'FA_val_avg_loss', 'Avg_val_loss')
 
 
-def train(device, mixed_precision, disable_cudnn_benchmark, num_workers, dataset, val_interval,
-          init_weights, batch_size, epochs, learning_rate, end_learning_rate, momentum,
-          weights_decay, poly_power, stage, w1, w2, freeze_batch_norm, experiment_id,
-          **other_args):
-    """Trains ``stage`` and writes its ``final.weights``; returns a summary
-    dict (steps, per-epoch train losses, the last validation, the weights
-    path, the file the model warm-started from)."""
+def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn_benchmark,
+                    num_workers, dataset, val_interval, checkpoint_interval, checkpoint_history,
+                    init_weights, batch_size, epochs, learning_rate, end_learning_rate, momentum,
+                    weights_decay, poly_power, stage, w1, w2, freeze_batch_norm, experiment_id,
+                    description=None, early_stopping=False, dry_run=False, debug_nans=False,
+                    **other_args):
+    """Trains ``stage`` (from the checkpoint's state when
+    ``is_resuming_training``; ``other_args`` then holds its entries) and
+    writes its checkpoints and ``final.weights``.  Returns a summary dict:
+    steps, per-epoch train losses, the last validation, the epoch the run
+    started after, the best validation, the checkpoints written, the
+    weights path, the file the model started from, the seconds taken."""
     process_start = datetime.now()
+    device_name = device
     device = select_device(device, cudnn_benchmark=not disable_cudnn_benchmark)
     ds = dataset['settings']
     compute_dtype = settings.mixed_precision_to_dtype(mixed_precision)
     amp_dtype = None if compute_dtype == torch.float32 else compute_dtype
-    print(CAUTION("This port's 'train' writes final.weights only: autosaved and best-validation "
-                  ".checkpoint files, TensorBoard logs and resume-train are not ported yet "
-                  "(ROADMAP.md queue 3)."))
 
-    starting_epoch = 0
+    if is_resuming_training:
+        starting_epoch = other_args['epoch']
+        best_validation_dict = dict(other_args['best_validation_dict'])
+    else:
+        starting_epoch = 0
+        best_validation_dict = {'epoch': -1, 'best_miou_percent': 0., 'loss': 0.}
     seed = settings.RANDOM_SEED + 1000 * (starting_epoch + 1)
     torch.manual_seed(seed)     # the CPU and every CUDA default generator: dropout masks
     photometric_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     model = init_model(DSRL(num_classes=ds.NUM_CLASSES, stage=stage),
                        torch.Generator().manual_seed(settings.RANDOM_SEED))
-    warm_start = _initialize(model, init_weights, stage, experiment_id)
+    if is_resuming_training:
+        load_state_dict(model, other_args['model_state_dict'], strict=True)
+        warm_start = other_args.get('checkpoint')
+    else:
+        warm_start = _initialize(model, init_weights, stage, experiment_id)
     model.to(device)
     optimizer = make_sgd(model, learning_rate, momentum, weights_decay)
+    if is_resuming_training:
+        load_optimizer_state_dict(optimizer, model, other_args['optimizer_state_dict'],
+                                  model_state_dict=other_args['model_state_dict'])
     scheduler = PolynomialLR(learning_rate, max_decay_steps=epochs, end_learning_rate=end_learning_rate,
                              power=poly_power, last_epoch=starting_epoch - 1)
 
     train_set = dataset['class'](dataset['path'], split='train')
-    if len(train_set) == 0:
+    if not dry_run and len(train_set) == 0:
         raise Exception(FATAL("Cityscapes dataset was not found under '{:s}'.".format(dataset['path'])))
-    if len(train_set) < batch_size:
+    if not dry_run and len(train_set) < batch_size:
         raise Exception(FATAL("The train split has {} images, fewer than one batch of {}.".format(
             len(train_set), batch_size)))
     val_set = dataset['class'](dataset['path'], split='val')
@@ -90,68 +124,174 @@ def train(device, mixed_precision, disable_cudnn_benchmark, num_workers, dataset
     cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
                         mean=ds.MEAN, std=ds.STD, ignore_label=ds.IGNORE_CLASS_LABEL)
     warp = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED)
+    # The dry run's SISR stand-in has the target's full-resolution shape.
     post_fn = make_device_post_fn(cfg, dtype=compute_dtype,
-                                  unshuffle_hi=SISR_UPSCALE if stage > 1 else 0)
+                                  unshuffle_hi=SISR_UPSCALE if stage > 1 and not dry_run else 0)
     train_step = make_train_step(model, optimizer, stage, w1, w2, ds.IGNORE_CLASS_LABEL,
-                                 freeze_batch_norm, post_fn=post_fn, amp_dtype=amp_dtype)
+                                 freeze_batch_norm, post_fn=post_fn, amp_dtype=amp_dtype,
+                                 dry_run=dry_run, debug_nans=debug_nans)
     eval_step = make_eval_step(ds.NUM_CLASSES, ds.IGNORE_CLASS_LABEL, stage, w1, w2,
-                               amp_dtype=amp_dtype)
+                               amp_dtype=amp_dtype, dry_run=dry_run)
     eval_transform = make_eval_transform_fn(settings.MODEL_INPUT_SIZE, settings.MODEL_OUTPUT_SIZE,
                                             ds.MEAN, ds.STD, ds.LABEL_MAPPING_LUT)
     train_loader = make_train_loader(train_set, batch_size, num_workers, device,
                                      seed=settings.RANDOM_SEED)
     val_loader = make_eval_loader(val_set, batch_size, num_workers, device)
 
-    n_params = sum(p.numel() for p in model.parameters())
-    print(INFO("Total training parameters: {:,}".format(n_params)))
-    print(INFO("Training on {:s}, batch {:d}, {:s}.".format(
-        device_description(device), batch_size, str(compute_dtype).replace('torch.', ''))))
-    print(INFO("################################# Stage {:d} training STARTED #################################\n"
-               .format(stage), prefix='\n'))
+    train_logs_dir = os.path.join(experiment_id, settings.LOGS_DIR.format(stage=stage, mode='train'))
+    val_logs_dir = os.path.join(experiment_id, settings.LOGS_DIR.format(stage=stage, mode='val'))
+    checkpoints_dir = os.path.join(experiment_id, settings.CHECKPOINTS_DIR.format(stage=stage))
+    summary = {'steps': 0, 'train_losses': [], 'val': None, 'warm_start': warm_start,
+               'starting_epoch': starting_epoch, 'checkpoints': []}
+    # What a checkpoint holds besides the epoch and the state
+    # (VARIABLES_IN_CHECKPOINT); the loss entries follow each epoch.
+    record = dict(device=device_name, mixed_precision=mixed_precision, amp_state_dict=None,
+                  disable_cudnn_benchmark=disable_cudnn_benchmark, num_workers=num_workers,
+                  val_interval=val_interval, checkpoint_interval=checkpoint_interval,
+                  checkpoint_history=checkpoint_history, init_weights=init_weights,
+                  batch_size=batch_size, epochs=epochs, learning_rate=learning_rate,
+                  end_learning_rate=end_learning_rate, momentum=momentum,
+                  weights_decay=weights_decay, poly_power=poly_power, stage=stage, w1=w1, w2=w2,
+                  freeze_batch_norm=freeze_batch_norm, experiment_id=experiment_id,
+                  description=description, early_stopping=early_stopping,
+                  best_validation_dict=best_validation_dict,
+                  **dict.fromkeys(TRAIN_LOSS_KEYS + VAL_LOSS_KEYS))
 
-    best = {'epoch': -1, 'best_miou_percent': 0.0}
-    summary = {'steps': 0, 'train_losses': [], 'val': None, 'warm_start': warm_start}
-    epoch_seconds = []
-    for epoch in range(starting_epoch + 1, epochs + 1):
-        print("\n=> EPOCH {0:d}/{1:d}".format(epoch, epochs))
-        lr = scheduler.get_last_lr()[0]
-        print("Learning Rate: {:6f}".format(lr))
-        epoch_start = datetime.now()
-        train_losses, steps = _train_epoch(train_step, train_loader, warp, device, epoch, lr,
-                                           photometric_gen, stage)
-        summary['steps'] += steps
-        summary['train_losses'].append(dict(zip(LOSS_NAMES, train_losses)))
+    def save_full_checkpoint(epoch, filename):
+        """The exact VARIABLES_IN_CHECKPOINT schema (train_or_resume.py:764-771
+        there), the state copied to the host once."""
+        t0 = datetime.now()
+        state = dict(record, epoch=epoch, model_state_dict=_host_state(model),
+                     optimizer_state_dict=optimizer_state_dict(optimizer, model, learning_rate,
+                                                               momentum, weights_decay))
+        save_checkpoint(checkpoints_dir, filename,
+                        **{var: state[var] for var in settings.VARIABLES_IN_CHECKPOINT})
+        path = os.path.join(checkpoints_dir, filename)
+        summary['checkpoints'].append({'path': path, 'epoch': epoch, 'bytes': os.path.getsize(path),
+                                       'seconds': (datetime.now() - t0).total_seconds()})
 
-        if epoch % val_interval == 0:
-            val_losses, val_miou, val_accuracy = _val_epoch(model, eval_step, val_loader,
-                                                            eval_transform, device, epoch, ds, best,
-                                                            stage)
-            summary['val'] = dict(zip(LOSS_NAMES, val_losses), epoch=epoch, mIoU=val_miou,
-                                  accuracy=val_accuracy)
-            if val_miou > best['best_miou_percent']:
-                best.update(epoch=epoch, best_miou_percent=val_miou)
-            if train_losses[3] < val_losses[3]:
-                print(CAUTION("Average training loss < Average validation loss!"))
+    with SummaryWriter(train_logs_dir) as train_logger, SummaryWriter(val_logs_dir) as val_logger:
+        _write_params_file(
+            os.path.join(train_logs_dir, settings.PARAMS_FILE),
+            "Timestamp: {:s}".format(process_start.strftime("%c")),
+            "Device: {:s}".format(device_name),
+            "Distributed: {:}".format(other_args['distributed']) if other_args.get('distributed') else None,
+            "Mixed Precision: {:s}".format(mixed_precision) if mixed_precision else None,
+            "No. of workers: {:d}".format(num_workers),
+            "Dataset: {:s}".format(dataset.get('name', 'cityscapes')),
+            "Dataset path: {:s}".format(dataset['path']),
+            "Validation interval: {:d}".format(val_interval),
+            "Checkpoint interval: {:d}".format(checkpoint_interval),
+            "Checkpoint history: {:d}".format(checkpoint_history),
+            "Initial weights: {:s}".format(init_weights) if init_weights else None,
+            "Resuming checkpoint: {:s}".format(other_args['checkpoint'])
+            if is_resuming_training and other_args.get('checkpoint') else None,
+            "Batch size: {:d}".format(batch_size),
+            "Epochs: {:d}".format(epochs),
+            "Learning rate: {:f}".format(learning_rate),
+            "End learning rate: {:f}".format(end_learning_rate),
+            "Momentum: {:f}".format(momentum),
+            "Weights decay: {:f}".format(weights_decay),
+            "Poly power: {:f}".format(poly_power),
+            "Stage: {:d}".format(stage),
+            "Loss Weight 1: {:.4f}".format(w1) if stage > 1 else None,
+            "Loss Weight 2: {:.4f}".format(w2) if stage > 2 else None,
+            "Freeze batch normalization: {:}".format(freeze_batch_norm),
+            "Experiment ID: {:}".format(experiment_id) if experiment_id else None,
+            "Description: {:s}".format(description) if description else None,
+            "Early stopping: {:}".format(early_stopping),
+            "Devices: 1 x {:s}".format(device_description(device)))
 
-        scheduler.step()
-        if epoch < epochs:
-            epoch_seconds.append((datetime.now() - epoch_start).total_seconds())
-            avg = np.mean(epoch_seconds[(-val_interval * 2):])
-            print(INFO("Est. training completion in {:s}.".format(
-                makeSecondsPretty(avg * (epochs - epoch)))))
+        n_params = sum(p.numel() for p in model.parameters())
+        print(INFO("Total training parameters: {:,}".format(n_params)))
+        train_logger.add_text("INFO", "Total training parameters: {:,}".format(n_params),
+                              starting_epoch + 1)
+        train_logger.add_text("INFO", "Training started on {:s}.".format(process_start.strftime("%c")),
+                              starting_epoch + 1)
+        print(INFO("Training on {:s}, batch {:d}, {:s}.".format(
+            device_description(device), batch_size, str(compute_dtype).replace('torch.', ''))))
+        if is_resuming_training:
+            print(INFO("Resuming after epoch {:d} from '{}'.".format(starting_epoch, warm_start)))
+        print(INFO("################################# Stage {:d} training STARTED #################################\n"
+                   .format(stage), prefix='\n'))
 
-    weights_dir = os.path.join(experiment_id, settings.WEIGHTS_DIR.format(stage=stage))
-    save_weights(weights_dir, settings.FINAL_WEIGHTS_FILE,
-                 {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
-                 mixed_precision)
-    summary['final_weights'] = os.path.join(weights_dir, settings.FINAL_WEIGHTS_FILE)
-    elapsed = (datetime.now() - process_start).total_seconds()
-    print(INFO("Training took {:s}; weights written to '{:s}'.".format(
-        makeSecondsPretty(elapsed), summary['final_weights'])))
-    print(INFO("################################# Stage {:d} training ENDED #################################"
-               .format(stage), prefix='\n'))
+        epoch_seconds = []
+        for epoch in range(starting_epoch + 1, epochs + 1):
+            print("\n=> EPOCH {0:d}/{1:d}".format(epoch, epochs))
+            lr = scheduler.get_last_lr()[0]
+            print("Learning Rate: {:6f}".format(lr))
+            epoch_start = datetime.now()
+            train_losses, steps = _train_epoch(train_step, train_loader, warp, device, epoch, lr,
+                                               photometric_gen, stage, debug_nans)
+            summary['steps'] += steps
+            summary['train_losses'].append(dict(zip(LOSS_NAMES, train_losses)))
+            record.update(zip(TRAIN_LOSS_KEYS, train_losses))
+            _log_losses(train_logger, stage, epoch, train_losses)
+            train_logger.add_scalar("Stage {:d}/Learning rate".format(stage), lr, epoch)
+
+            if checkpoint_history > 0 and epoch % checkpoint_interval == 0:
+                save_full_checkpoint(epoch, settings.CHECKPOINT_FILE.format(epoch=epoch))
+                print(INFO("Autosaved checkpoint for epoch {0:d} under '{1:s}'.".format(
+                    epoch, settings.CHECKPOINTS_DIR.format(stage=stage))))
+                old_epoch = epoch - checkpoint_history * checkpoint_interval
+                old = os.path.join(checkpoints_dir, settings.CHECKPOINT_FILE.format(epoch=old_epoch))
+                if old_epoch > 0 and os.path.isfile(old):
+                    os.remove(old)
+
+            if epoch % val_interval == 0:
+                val_losses, val_miou, val_accuracy = _val_epoch(
+                    model, eval_step, val_loader, eval_transform, device, epoch, ds,
+                    best_validation_dict, stage, val_logger)
+                summary['val'] = dict(zip(LOSS_NAMES, val_losses), epoch=epoch, mIoU=val_miou,
+                                      accuracy=val_accuracy)
+                record.update(zip(VAL_LOSS_KEYS, val_losses))
+                _log_losses(val_logger, stage, epoch, val_losses)
+                val_logger.add_scalar("Stage {:d}/Accuracy %".format(stage), val_accuracy, epoch)
+                val_logger.add_scalar("Stage {:d}/mIoU %".format(stage), val_miou, epoch)
+
+                if val_miou > best_validation_dict['best_miou_percent']:
+                    best_validation_dict.update(epoch=epoch, best_miou_percent=val_miou,
+                                                loss=val_losses[3])
+                    for old in glob.glob(os.path.join(checkpoints_dir, "*_bestval.checkpoint")):
+                        os.remove(old)
+                    save_full_checkpoint(epoch, settings.CHECKPOINT_FILE.format(
+                        epoch='{:d}_bestval'.format(epoch)))
+
+                if train_losses[3] < val_losses[3]:
+                    if early_stopping:
+                        log_string = "Early stopping was triggered at epoch {:d}.".format(epoch)
+                        train_logger.add_text("INFO", log_string, epoch)
+                        print(INFO(log_string))
+                        summary['early_stopped_at'] = epoch
+                        break
+                    print(CAUTION("Average training loss < Average validation loss!"))
+
+            scheduler.step()
+            if epoch < epochs:
+                epoch_seconds.append((datetime.now() - epoch_start).total_seconds())
+                avg = np.mean(epoch_seconds[(-val_interval * 2):])
+                print(INFO("Est. training completion in {:s}.".format(
+                    makeSecondsPretty(avg * (epochs - epoch)))))
+
+        weights_dir = os.path.join(experiment_id, settings.WEIGHTS_DIR.format(stage=stage))
+        save_weights(weights_dir, settings.FINAL_WEIGHTS_FILE, _host_state(model), mixed_precision)
+        summary['final_weights'] = os.path.join(weights_dir, settings.FINAL_WEIGHTS_FILE)
+        summary['best_validation'] = dict(best_validation_dict)
+        process_end = datetime.now()
+        elapsed = (process_end - process_start).total_seconds()
+        train_logger.add_text("INFO", "Training took {0:s} and completed on {1:s}.".format(
+            makeSecondsPretty(elapsed), process_end.strftime("%c")), epochs)
+        print(INFO("Training took {:s}; weights written to '{:s}'.".format(
+            makeSecondsPretty(elapsed), summary['final_weights'])))
+        print(INFO("################################# Stage {:d} training ENDED #################################"
+                   .format(stage), prefix='\n'))
     summary['seconds'] = elapsed
     return summary
+
+
+def _host_state(model):
+    """The model's state dict as host numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
 
 
 def _initialize(model, init_weights, stage, experiment_id):
@@ -181,6 +321,18 @@ def _initialize(model, init_weights, stage, experiment_id):
     return None
 
 
+def _log_losses(logger, stage, epoch, losses):
+    """The per-epoch loss scalars under the JAX engine's tags
+    (train_or_resume.py:349-354,404-409 there)."""
+    ce, mse, fa, total = losses
+    logger.add_scalar("Stage {:d}/CE Loss".format(stage), ce, epoch)
+    if stage > 1:
+        logger.add_scalar("Stage {:d}/MSE Loss".format(stage), mse, epoch)
+        if stage > 2:
+            logger.add_scalar("Stage {:d}/FA Loss".format(stage), fa, epoch)
+        logger.add_scalar("Stage {:d}/Total Loss".format(stage), total, epoch)
+
+
 def _loss_log(meters, stage):
     """The JAX engine's average-loss line (train_or_resume.py:599-605 there)."""
     log = ["Avg. CE: {:.4f}".format(meters['CE']())]
@@ -198,7 +350,7 @@ def _update_meters(pending, meters):
         meters[name].update(float(losses[name]), n)
 
 
-def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage):
+def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, debug_nans):
     meters = {name: AverageMeter() for name in LOSS_NAMES}
     loader.batch_sampler.set_epoch(epoch)
     pending = None   # (device losses, batch size), read one step late
@@ -206,7 +358,11 @@ def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage):
     for imgs_u8, segs_u8, batch_epoch, batch_index in loader:
         imgs_w, segs_w = warp(batch_epoch, batch_index, imgs_u8.to(device, non_blocking=True),
                               segs_u8.to(device, non_blocking=True))
-        losses = train_step(imgs_w, segs_w, lr, generator)
+        try:
+            losses = train_step(imgs_w, segs_w, lr, generator)
+        except FloatingPointError as ex:   # --debug-nans
+            raise FloatingPointError("--debug-nans: {} at epoch {:d}, step {:d}.".format(
+                ex, epoch, steps + 1)) from None
         if pending is not None:
             _update_meters(pending, meters)
         pending = (losses, imgs_u8.shape[0])
@@ -217,18 +373,24 @@ def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage):
     return tuple(meters[name]() for name in LOSS_NAMES), steps
 
 
-def _val_epoch(model, eval_step, loader, transform, device, epoch, ds, best, stage):
+def _val_epoch(model, eval_step, loader, transform, device, epoch, ds, best, stage, logger):
     meters = {name: AverageMeter() for name in LOSS_NAMES}
     miou = mIoU(num_classes=ds.NUM_CLASSES)
     mean_accuracy = Accuracy()
     model.eval()
+    # The unseeded global RNG on purpose: the reference picks its example
+    # with it too (train_or_resume.py:399 there), and the seeded streams
+    # must not move.
+    example_index = np.random.randint(0, max(len(loader), 1))
     pending = []   # per-batch results stay on the device until the pass ends
-    for imgs_u8, segs_u8 in loader:
+    for i, (imgs_u8, segs_u8) in enumerate(loader):
         n = imgs_u8.shape[0]
         (img_lo, img_hi), (seg_hi, _) = transform(imgs_u8.to(device, non_blocking=True),
                                                   segs_u8.to(device, non_blocking=True))
-        losses, _, hists, acc = eval_step(model, img_lo, img_hi, seg_hi, torch.ones(n, device=device))
+        losses, pred, hists, acc = eval_step(model, img_lo, img_hi, seg_hi, torch.ones(n, device=device))
         pending.append((losses, hists, acc, n))
+        if i == example_index:
+            _log_example_image(logger, img_hi[0], pred[0], ds, epoch)
     for losses, hists, acc, n in pending:
         _update_meters((losses, n), meters)
         miou.update_from_areas(*[h.cpu().numpy() for h in hists])
@@ -241,3 +403,17 @@ def _val_epoch(model, eval_step, loader, transform, device, epoch, ds, best, sta
         "mIoU %: {:.2f}".format(miou()),
         "Best mIoU % yet is {:.2f} at epoch {:d}.".format(best_miou, best_epoch)])))
     return tuple(meters[name]() for name in LOSS_NAMES), miou(), mean_accuracy()
+
+
+def _log_example_image(logger, img_hi, pred, ds, epoch):
+    """One validation visualization per pass (train_or_resume.py:745-762
+    there): the denormalized (OH, OW, 3) input | its class map | overlay."""
+    img = img_hi.float().cpu().numpy() * np.asarray(ds.STD) + np.asarray(ds.MEAN)
+    img = np.clip(img * 255.0, 0.0, 255.0).astype(np.uint8).transpose(2, 0, 1)
+    logger.add_image("EXAMPLE", make_input_output_visualization(img, pred.cpu().numpy(),
+                                                                ds.CLASS_RGB_COLOR), epoch)
+
+
+def _write_params_file(filename, *list_params):
+    with open(filename, mode='w') as params_file:
+        params_file.write('\n'.join(x for x in list_params if x is not None))

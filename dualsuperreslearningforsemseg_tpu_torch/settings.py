@@ -44,8 +44,14 @@ EXPERIMENTS_ROOT_DIR = 'experiments'
 WEIGHTS_ROOT_DIR = 'weights'
 WEIGHTS_DIR = os.path.join(WEIGHTS_ROOT_DIR, 'stage{stage}')
 FINAL_WEIGHTS_FILE = 'final.weights'
+CHECKPOINTS_DIR = os.path.join(WEIGHTS_DIR, 'checkpoints')
+CHECKPOINT_FILE = 'epoch{epoch}.checkpoint'
 LOGS_DIR = os.path.join('logs', 'stage{stage}', '{mode}')
+PARAMS_FILE = 'params.txt'
+STDOUT_FILE = 'stdout.txt'
 OUTPUTS_DIR = 'outputs'
+PROFILING_FILE = 'profiling.json'
+PROFILING_DIR = os.path.join(OUTPUTS_DIR, 'profile')
 DATASETS_DIR = 'datasets'
 
 # Model parameters (reference settings.py:60-63).
@@ -85,6 +91,29 @@ DATASETS = {
     },
 }
 DATASETS = {k.casefold(): v for k, v in DATASETS.items()}
+
+# Checkpoint schema (reference settings.py:76-80): the same 36 entries as
+# the JAX package's list, 'amp_state_dict' twice among them.
+VARIABLES_IN_CHECKPOINT = \
+['device', 'mixed_precision', 'amp_state_dict', 'disable_cudnn_benchmark', 'num_workers', 'val_interval', 'checkpoint_interval', 'checkpoint_history', 'init_weights',
+ 'batch_size', 'epochs', 'learning_rate', 'end_learning_rate', 'momentum', 'weights_decay', 'poly_power', 'stage', 'w1', 'w2', 'freeze_batch_norm', 'experiment_id',
+ 'description', 'early_stopping', 'CE_train_avg_loss', 'MSE_train_avg_loss', 'FA_train_avg_loss', 'Avg_train_loss', 'CE_val_avg_loss', 'MSE_val_avg_loss',
+ 'FA_val_avg_loss', 'Avg_val_loss', 'epoch', 'best_validation_dict', 'model_state_dict', 'optimizer_state_dict', 'amp_state_dict']
+
+# Device names a JAX-era checkpoint or recipe may hold -> the port's.
+_PORT_DEVICE = {'cpu': 'cpu', 'tpu': 'cuda', 'gpu': 'cuda', 'cuda': 'cuda'}
+
+
+def port_device(device: str) -> str:
+    """The port's device for a device name from a checkpoint or a
+    ``config-train`` file: ``cpu`` stays ``cpu``; the accelerator names
+    ``tpu``, ``gpu`` and ``cuda`` become ``cuda`` (which raises later on a
+    machine without a card; it never turns into the CPU)."""
+    name = str(device).casefold()
+    if name not in _PORT_DEVICE:
+        raise ValueError("Unknown device '{}': expected one of {}.".format(
+            device, ', '.join(sorted(_PORT_DEVICE))))
+    return _PORT_DEVICE[name]
 
 
 def mixed_precision_to_dtype(mixed_precision) -> torch.dtype:

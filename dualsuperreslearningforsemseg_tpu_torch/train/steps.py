@@ -23,6 +23,17 @@ images and (B, H, W) labels.  The loss is ``CE + w1 * MSE + w2 * FA``
   launch whose rows are the samples.
 
 On the card the kernels run; on the CPU their plain versions.
+
+``dry_run`` (``train --dry-run``, steps.py:74,145-150,434-440 there)
+replaces the network by random outputs of its real shapes, the logits
+classes-last at the output size, the SISR output at the target's and the
+transformer outputs at (B, 1, OH/8, OW/8), and skips the SGD update.  The
+losses come from the plain ``losses/`` functions, as the JAX dry run runs
+no fused tail: K1, K3 and K4 are not launched.  ``debug_nans``
+(``--debug-nans``, the counterpart of ``jax_debug_nans``) runs the train
+step under ``torch.autograd.detect_anomaly(check_nan=True)`` and raises
+``FloatingPointError`` naming the first non-finite loss, at the cost of one
+sync a step.
 """
 
 import contextlib
@@ -30,7 +41,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from ..losses import fa_loss, fa_loss_per_sample, mse_loss
+from ..losses import cross_entropy_loss, fa_loss, fa_loss_per_sample, mse_loss
+from ..metrics.device import argmax_lastdim, batch_accuracy_counts, batch_histograms
 from ..models.dsrl import SISR_UPSCALE, freeze_batch_norms
 from ..ops.eval_tail import eval_tail
 from ..ops.fused_tail import fused_convt2_ce_mean
@@ -49,6 +61,28 @@ def _autocast(device_type, amp_dtype):
             else contextlib.nullcontext())
 
 
+def _raise_if_not_finite(losses):
+    """``--debug-nans``: one sync for all the losses; the first non-finite
+    one (in CE, MSE, FA, Total order) is named."""
+    finite = torch.isfinite(torch.stack([v.float() for v in losses.values()])).tolist()
+    if not all(finite):
+        name = next(n for n, ok in zip(losses, finite) if not ok)
+        raise FloatingPointError("the {} loss is {}".format(name, float(losses[name].detach())))
+
+
+def _dry_outputs(seg, hi_shape, num_classes, generator=None):
+    """``--dry-run``'s stand-ins for the network's outputs: (B, OH, OW, C)
+    logits, the SISR output of ``hi_shape`` and the two (B, 1, OH/8, OW/8)
+    transformer outputs, all standard normal."""
+    b, h, w = seg.shape
+
+    def draw(*shape):
+        return torch.randn(shape, generator=generator, device=seg.device)
+
+    return (draw(b, h, w, num_classes), draw(*hi_shape), draw(b, 1, h // 8, w // 8),
+            draw(b, 1, h // 8, w // 8))
+
+
 def _check_stage(model, stage):
     if getattr(model, 'stage', None) != stage:
         raise ValueError("the step is for stage {}, the model is stage {}".format(
@@ -56,7 +90,8 @@ def _check_stage(model, stage):
 
 
 def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_label: int = 255,
-                    freeze_batch_norm: bool = False, post_fn=None, amp_dtype=None):
+                    freeze_batch_norm: bool = False, post_fn=None, amp_dtype=None,
+                    dry_run: bool = False, debug_nans: bool = False):
     """Returns fn(img_lo (B, H, W, 3), img_hi (B, 2H, 2W, 3), seg (B, 2H, 2W),
     lr) -> losses, or with ``post_fn`` (data/augment.py::make_device_post_fn)
     fn(imgs_w_u8 (B, 2H, 2W, 3), segs_w_u8 (B, 2H, 2W), lr, generator) ->
@@ -74,7 +109,8 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
     bfloat16 activation, the MSE subtracts in bfloat16, and the FA loss
     still runs in float32.  ``losses`` is ``{'CE', 'MSE', 'FA', 'Total'}``,
     float32 scalars on the device (the terms a stage lacks are 0); nothing
-    syncs to the host.
+    syncs to the host (but under ``debug_nans``).  ``dry_run`` and
+    ``debug_nans``: the module docstring.
     """
     _check_stage(model, stage)
     hi_unshuffled = getattr(post_fn, 'unshuffled_hi_factor', 0) if post_fn is not None else 0
@@ -83,12 +119,7 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
             SISR_UPSCALE, hi_unshuffled))
     tail = model.SSSR_decoder.upsample16_pred[6]
 
-    def step(img_lo, img_hi, seg, lr, unshuffled):
-        model.train()
-        if freeze_batch_norm:
-            freeze_batch_norms(model)
-        for group in optimizer.param_groups:
-            group['lr'] = lr
+    def network_losses(img_lo, img_hi, seg, unshuffled):
         x = img_lo.permute(0, 3, 1, 2).contiguous()
         with _autocast(x.device.type, amp_dtype):
             sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
@@ -97,11 +128,36 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
         zero = torch.zeros((), device=ce.device)
         mse = w1 * mse_loss(sisr, _sisr_target(img_hi, unshuffled)) if stage > 1 else zero
         fa = w2 * fa_loss(sssr_t, sisr_t) if stage > 2 else zero
-        total = ce + mse + fa
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        return {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
+
+    def dry_losses(img_hi, seg):
+        sssr, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, tail.out_channels)
+        ce = cross_entropy_loss(sssr, seg, ignore_label)
+        zero = torch.zeros((), device=ce.device)
+        mse = w1 * mse_loss(sisr, img_hi) if stage > 1 else zero
+        fa = w2 * fa_loss(sssr_t, sisr_t, impl='sorted') if stage > 2 else zero
+        return {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
+
+    def step(img_lo, img_hi, seg, lr, unshuffled):
+        if dry_run:
+            losses = dry_losses(img_hi, seg)
+            if debug_nans:
+                _raise_if_not_finite(losses)
+            return losses
+        model.train()
+        if freeze_batch_norm:
+            freeze_batch_norms(model)
+        for group in optimizer.param_groups:
+            group['lr'] = lr
+        with (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
+              else contextlib.nullcontext()):
+            losses = network_losses(img_lo, img_hi, seg, unshuffled)
+            if debug_nans:
+                _raise_if_not_finite(losses)
+            optimizer.zero_grad(set_to_none=True)
+            losses['Total'].backward()
         optimizer.step()
-        return {'CE': ce.detach(), 'MSE': mse.detach(), 'FA': fa.detach(), 'Total': total.detach()}
+        return {k: v.detach() for k, v in losses.items()}
 
     if post_fn is None:
         def train_core(img_lo, img_hi, seg, lr):
@@ -117,7 +173,7 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
 
 
 def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1: float = 0.0,
-                   w2: float = 0.0, amp_dtype=None):
+                   w2: float = 0.0, amp_dtype=None, dry_run: bool = False):
     """Returns fn(model, img_lo, img_hi, seg, sample_mask) ->
     (losses, pred, (area_pred, area_inter, area_target), (correct, valid)).
 
@@ -131,6 +187,9 @@ def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1
     mode.  ``amp_dtype`` runs the forward under the train step's autocast,
     as the JAX package validates its bfloat16 model under
     ``--mixed-precision``: K3 then receives the bfloat16 activation.
+    ``dry_run`` draws the outputs instead (from a generator seeded 0 each
+    batch, as the JAX dry run's fixed key) and computes the CE, the class
+    map and the counts with the plain functions.
     """
     def eval_step(model, img_lo, img_hi, seg, sample_mask):
         _check_stage(model, stage)
@@ -140,19 +199,32 @@ def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1
         with torch.inference_mode():
             mask = sample_mask.to(seg.device).float()
             seg = torch.where(mask.reshape(-1, 1, 1) > 0, seg.to(torch.uint8), ignore_label)
-            x = img_lo.permute(0, 3, 1, 2).contiguous()
-            with _autocast(x.device.type, amp_dtype):
-                sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
-            pred, ce_sum, areas, (correct, valid) = eval_tail(
-                sssr.contiguous(), tail.weight, tail.bias, seg.contiguous(), ignore_label)
-            ce = torch.where(valid > 0, ce_sum / valid.clamp(min=1), 0.0).float()
+            if dry_run:
+                gen = torch.Generator(device=seg.device).manual_seed(0)
+                logits, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, num_classes, gen)
+                target = img_hi
+                ce = cross_entropy_loss(logits, seg, ignore_label)
+                pred = argmax_lastdim(logits).to(torch.uint8)
+                areas = batch_histograms(pred, seg, num_classes, ignore_label)
+                correct, valid = batch_accuracy_counts(pred, seg, ignore_label)
+            else:
+                x = img_lo.permute(0, 3, 1, 2).contiguous()
+                with _autocast(x.device.type, amp_dtype):
+                    sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
+                target = _sisr_target(img_hi, False) if stage > 1 else None
+                pred, ce_sum, areas, (correct, valid) = eval_tail(
+                    sssr.contiguous(), tail.weight, tail.bias, seg.contiguous(), ignore_label)
+                ce = torch.where(valid > 0, ce_sum / valid.clamp(min=1), 0.0).float()
             mse = fa = torch.zeros((), device=ce.device)
             n_real = mask.sum().clamp(min=1)
             if stage > 1:
-                diff = sisr.float() - _sisr_target(img_hi, False).float()
+                diff = sisr.float() - target.float()
                 mse = w1 * ((diff * diff).mean((1, 2, 3)) * mask).sum() / n_real
             if stage > 2:
-                fa = w2 * (fa_loss_per_sample(sssr_t, sisr_t) * mask).sum() / n_real
+                per_sample = (torch.stack([fa_loss(sssr_t[i:i + 1], sisr_t[i:i + 1], impl='sorted')
+                                           for i in range(seg.shape[0])]) if dry_run
+                              else fa_loss_per_sample(sssr_t, sisr_t))
+                fa = w2 * (per_sample * mask).sum() / n_real
             losses = {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
         return losses, pred, areas, (correct, valid)
 

@@ -1,4 +1,4 @@
-from .logging import INFO, CAUTION, FATAL
+from .logging import INFO, CAUTION, FATAL, OverridePrintWithTQDMWriteAndLog, ConditionalContextManager
 from .timers import timethis, makeSecondsPretty
 from .fsutil import (INVALID_FILENAME_CHARS, isInvalidFilename, hasExtension,
                      getFilesWithExtension, swapTupleValues)
@@ -6,7 +6,8 @@ from .device import select_device, device_description
 from .validators import ValidateDatasetNameAndSplit
 
 __all__ = [
-    'INFO', 'CAUTION', 'FATAL', 'timethis', 'makeSecondsPretty',
+    'INFO', 'CAUTION', 'FATAL', 'OverridePrintWithTQDMWriteAndLog', 'ConditionalContextManager',
+    'timethis', 'makeSecondsPretty',
     'INVALID_FILENAME_CHARS', 'isInvalidFilename', 'hasExtension', 'getFilesWithExtension', 'swapTupleValues',
     'select_device', 'device_description', 'ValidateDatasetNameAndSplit',
 ]

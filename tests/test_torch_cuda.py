@@ -43,6 +43,10 @@ device.  Run on the GPU machine with
   chosen), run twice from the same saved model, optimizer and generator
   state with the port's device settings (``select_device``): losses and
   every state tensor bitwise equal (tests/test_torch_determinism.py).
+* Resume: ``train --stage 3 --epochs 2`` with an autosave each epoch at the
+  CPU suite's small size and depth (the sizes set on ``settings`` for the
+  test), then ``resume-train`` twice from its ``epoch1.checkpoint`` in this
+  process: the two ``final.weights`` bitwise equal.
 """
 
 import numpy as np
@@ -367,3 +371,30 @@ def test_warp_on_the_card_matches_its_cpu_run(cuda):
 @pytest.mark.parametrize('stage', [1, 3])
 def test_train_step_is_bitwise_deterministic_on_the_card(cuda, stage):
     assert_bitwise_equal(*repeated_step(select_device('cuda'), stage=stage))
+
+
+def test_two_resumes_from_one_checkpoint_are_bitwise_equal(cuda, tmp_path, monkeypatch):
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.data import make_synthetic_cityscapes_tree
+    for name, value in (('MODEL_INPUT_SIZE', (64, 128)), ('MODEL_OUTPUT_SIZE', (128, 256)),
+                        ('BACKBONE_LAYERS', (1, 1, 2, 1))):
+        monkeypatch.setattr(settings, name, value)
+    data_root = str(tmp_path / 'datasets' / 'Cityscapes' / 'data')
+    make_synthetic_cityscapes_tree(data_root, split='train', num_images=4, size_hw=(128, 256), seed=1)
+    make_synthetic_cityscapes_tree(data_root, split='val', num_images=3, size_hw=(128, 256), seed=2)
+    monkeypatch.chdir(tmp_path)
+    main(['train', '--stage', '3', '--epochs', '2', '--batch-size', '2', '--num-workers', '0',
+          '--dataset', 'cityscapes', '--val-interval', '1', '--checkpoint-interval', '1',
+          '--checkpoint-history', '2', '--experiment-id', 'resume'])
+    checkpoint = str(tmp_path / 'experiments' / 'resume' / 'weights' / 'stage3' / 'checkpoints' /
+                     'epoch1.checkpoint')
+    finals = []
+    for _ in range(2):
+        res = main(['resume-train', '--checkpoint', checkpoint, '--dataset', 'cityscapes'])
+        assert res['starting_epoch'] == 1 and res['steps'] == 2
+        finals.append(load_checkpoint_or_weights(res['final_weights'])['model_state_dict'])
+    assert set(finals[0]) == set(finals[1])
+    differ = [k for k in finals[0] if not np.array_equal(finals[0][k], finals[1][k])]
+    assert not differ, differ

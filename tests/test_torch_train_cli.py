@@ -12,9 +12,9 @@ package loads (``load_checkpoint_or_weights`` + ``load_state_dict(strict=
 True)``) with the same key set and shapes as its own stage-1 model; the
 losses it returns are finite.  With ``--mixed-precision O1`` the train
 step hands K1 and the validation step hands K3 a bfloat16 activation, as
-the JAX package trains and validates its bfloat16 model.  The ``train`` flags the port does not have
-yet exit with the "not ported yet" error naming the ROADMAP queue, before
-any work, at every stage.
+the JAX package trains and validates its bfloat16 model.  ``--distributed``,
+which the port does not have yet, exits from ``train`` and ``resume-train``
+with the "not ported yet" error naming the ROADMAP queue, before any work.
 """
 
 import math
@@ -89,12 +89,15 @@ def test_mixed_precision_trains_and_validates_in_bf16(workdir, monkeypatch):
     assert load_checkpoint_or_weights(res['final_weights'])['mixed_precision'] == 'O1'
 
 
-@pytest.mark.parametrize('extra', [['--stage', '2', '--profile'], ['--stage', '3', '--debug-nans'],
-                                   ['--stage', '1', '--early-stopping'],
-                                   ['--stage', '1', '--dry-run']])
-def test_unported_requests_exit_with_an_error(workdir, capsys, extra):
+DISTRIBUTED = ['--distributed', 'localhost', '29500', '1', '2', 'gloo', 'env://', '0']
+
+
+@pytest.mark.parametrize('argv', [
+    ARGS + ['--stage', '2', '--experiment-id', 'refused'] + DISTRIBUTED,
+    ['resume-train', '--checkpoint', 'missing.checkpoint', '--dataset', 'cityscapes'] + DISTRIBUTED])
+def test_unported_requests_exit_with_an_error(workdir, capsys, argv):
     with pytest.raises(SystemExit) as exc:
-        main(ARGS + extra + ['--experiment-id', 'refused'])
+        main(argv)
     assert exc.value.code == 2
     out = capsys.readouterr().out
     assert 'not ported yet' in out and 'ROADMAP.md queue' in out
