@@ -106,7 +106,25 @@ nothing of JAX.  Phases, each fatal on failure:
    its ``stdout.txt``, its checkpoint read and first step timed, and the
    two ``final.weights`` bitwise equal; then the checkpoint's momentum,
    restored into ``DSRL(stage=3)`` + SGD on the card and exported again,
-   bitwise equal to the file's.
+   bitwise equal to the file's;
+13. the rest of the CLI, at full depth on phase 6's frames: ``compile-model``
+   of phase 7's stage-1 ``final.weights`` (export seconds and bundle size
+   printed), then ``test --images-dir`` over 8 frames eager and with
+   ``--compiled-model`` (each one's p50 inference latency printed, and the
+   batch-1 forward alone of the model and the program): the
+   two class maps, in the PNGs and recomputed from the model and the
+   program, must be equal except at pixels whose eager top-2 logits lie
+   within 1e-4; ``test --dataset cityscapes val 30 --no-interactive`` must
+   write the 6 [target | prediction] PNGs; ``prune-weights`` of phase 9's
+   stage-3 ``final.weights``, and ``benchmark`` of the pruned and the
+   unpruned file (``--disable-cudnn-benchmark``, so both pick the same
+   algorithms): CE, mIoU and accuracy equal, K3 launched once per batch
+   (counts reset before); the ``--torch-format`` file must load into the
+   stage-1 model with ``strict=True``; ``print-model --stage 3`` must count
+   the stage-3 model's parameters; ``inspect-checkpoint`` and
+   ``edit-checkpoint`` on phase 12's ``epoch1.checkpoint``; then
+   ``run_script show_augmented_inputs_targets --limit 4``, with the counts
+   reset before it, must launch K2 and write 4 PNGs.
 
 Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
 TB/s and its operations over the card's peak for their type: the 19x19
@@ -1357,6 +1375,156 @@ def state_phase(device_name, counts3):
             differ[:8], len(saved), len(list(model.parameters()))))
 
 
+def _png(path):
+    import numpy as np
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def commands_phase(device_name):
+    """compile-model and test --compiled-model, test --dataset, prune-weights
+    with benchmark, print-model, inspect/edit-checkpoint and the augmentation
+    script on the card (phase 13)."""
+    import contextlib
+    import io
+    import statistics
+    import numpy as np
+    import torch
+    from PIL import Image, ImageOps
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main as cli_main
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.commands.compile_model import load_compiled_model
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import load_model, network_input
+    from dualsuperreslearningforsemseg_tpu_torch.data import CityscapesDataset
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL
+    from dualsuperreslearningforsemseg_tpu_torch.run_script import main as run_script
+    t_phase = time.time()
+    cuda = torch.device('cuda')
+    ds = settings.DATASETS['cityscapes']['settings']
+    oh, ow = settings.MODEL_OUTPUT_SIZE
+    stage1 = os.path.join('experiments', 'smoke', 'weights', 'stage1', 'final.weights')
+    stage3 = os.path.join('experiments', 'smoke', 'weights', 'stage3', 'final.weights')
+
+    # (a) compile-model; test --images-dir eager and from the program.
+    res = cli_main(['compile-model', '--weights', stage1, '--output-file', 'model.pt2'])
+    print("compile-model on {}: export + save {:.3f} s, bundle {} bytes ({:.1f} MiB)".format(
+        device_name, res['seconds'], res['bytes'], res['bytes'] / 2 ** 20), flush=True)
+    val = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='val')
+    os.makedirs('frames8', exist_ok=True)
+    for path, _ in val.pairs[:8]:
+        shutil.copy(path, 'frames8')
+    runs = {}
+    for mode, extra in (('eager', ['--weights', stage1]),
+                        ('compiled', ['--weights', 'model.pt2', '--compiled-model'])):
+        runs[mode] = cli_main(['test', '--images-dir', 'frames8', '--output-dir', 'out_' + mode]
+                              + extra)
+        sec = runs[mode]['seconds']
+        print("test --images-dir ({}) on {}: {} frames, inference p50 {:.3f} ms (uint8 frame to "
+              "the card, normalize, resize, forward, argmax, class map back), each {}".format(
+                  mode, device_name, len(sec), 1e3 * statistics.median(sec),
+                  [round(1e3 * v, 3) for v in sec]), flush=True)
+    eager, program = load_model(stage1, NUM_CLASSES, cuda), load_compiled_model('model.pt2', cuda)
+    flips = png_differ = beyond = 0
+    for (frame, _), a, b in zip(val.pairs[:8], runs['eager']['outputs'], runs['compiled']['outputs']):
+        with Image.open(frame) as src:
+            arr = np.asarray(ImageOps.exif_transpose(src).convert('RGB')
+                             .resize((ow, oh), resample=Image.BILINEAR), dtype=np.uint8)
+        with torch.inference_mode():
+            x = network_input(arr, ds, cuda)
+            ref, got = eager(x)[0][0], program(x)[0][0]
+            top2 = ref.topk(2, dim=0).values
+            near = ((top2[0] - top2[1]) <= 1e-4).cpu().numpy()
+            flip = (ref.argmax(0) != got.argmax(0)).cpu().numpy()
+        png_a, png_b = _png(a), _png(b)
+        differ = np.any(png_a != png_b, axis=-1)
+        differ = differ[:, ow:2 * ow] | differ[:, 2 * ow:]
+        flips, png_differ = flips + int(flip.sum()), png_differ + int(differ.sum())
+        beyond += int((flip & ~near).sum()) + int((differ & ~near).sum())
+        beyond += int(np.any(png_a[:, :ow] != png_b[:, :ow]))
+    print("compiled vs eager class maps over 8 frames: {} pixels differ recomputed, {} in the PNGs, "
+          "{} of them not near-ties (top-2 within 1e-4)".format(flips, png_differ, beyond), flush=True)
+    with torch.inference_mode():
+        forward_ms = {mode: cuda_ms(lambda f=f: f(x), iters=20)
+                      for mode, f in (('eager', eager), ('compiled', program))}
+    print("batch-1 forward alone on {} (CUDA events over 20 calls, the last frame): eager {:.3f} ms, "
+          "compiled {:.3f} ms".format(device_name, forward_ms['eager'], forward_ms['compiled']),
+          flush=True)
+    if beyond:
+        fail("the compiled model's class map differs from the eager one beyond near-ties")
+
+    # (b) test --dataset from index 30 of the 36-frame split.
+    res = cli_main(['test', '--dataset', 'cityscapes', 'val', '30', '--no-interactive',
+                    '--weights', stage1, '--output-dir', 'out_dataset'])
+    sizes = [_png(p).shape for p in res['outputs']]
+    print("test --dataset cityscapes val 30 on {}: {} pairs {}, inference p50 {:.3f} ms".format(
+        device_name, len(sizes), sorted(os.listdir('out_dataset')),
+        1e3 * statistics.median(res['seconds'])), flush=True)
+    if sorted(os.listdir('out_dataset')) != ['{}.png'.format(i) for i in range(30, 36)] \
+            or set(sizes) != {(2 * oh, 3 * ow, 3)}:
+        fail("test --dataset wrote {} of shapes {}".format(os.listdir('out_dataset'), set(sizes)))
+
+    # (c) prune-weights, the benchmark of the pruned file, --torch-format.
+    cli_main(['prune-weights', '--src-weights', stage3, '--dest-weights', 'pruned.weights', '--yes'])
+    cli_main(['prune-weights', '--src-weights', stage3, '--dest-weights', 'pruned.pth',
+              '--torch-format', '--yes'])
+    pth = torch.load('pruned.pth', map_location='cpu', weights_only=True)
+    DSRL(num_classes=NUM_CLASSES).load_state_dict(pth, strict=True)
+    bench, k3 = {}, {}
+    for name, weights in (('unpruned', stage3), ('pruned', 'pruned.weights')):
+        fns = reset_counts()
+        bench[name] = cli_main(['benchmark', '--weights', weights, '--dataset', 'cityscapes', 'val',
+                                '--batch-size', '16', '--disable-cudnn-benchmark'])
+        k3[name] = fns['eval_tail'].launches
+    results = {name: (r['CE'], r['mIoU'], r['accuracy']) for name, r in bench.items()}
+    print("benchmark of the stage-3 weights, unpruned / pruned: {} / {}; eval_tail launches {}; "
+          "pruned .pth: {} tensors, loads with strict=True".format(
+              results['unpruned'], results['pruned'], k3, len(pth)), flush=True)
+    if results['pruned'] != results['unpruned'] or k3['pruned'] != -(-36 // 16):
+        fail("pruned benchmark {} vs {}, K3 launches {}".format(results['pruned'],
+                                                                results['unpruned'], k3))
+
+    # (d) print-model, inspect-checkpoint, edit-checkpoint.
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        counts = cli_main(['print-model', '--stage', '3'])
+    n_params = sum(p.numel() for p in DSRL(num_classes=NUM_CLASSES, stage=3).parameters())
+    print("print-model --stage 3: {} lines, counts {}".format(len(log.getvalue().splitlines()), counts),
+          flush=True)
+    if counts != (n_params, n_params):
+        fail("print-model counted {} (want {})".format(counts, n_params))
+    checkpoint = os.path.join('experiments', 'smoke_state', 'weights', 'stage3', 'checkpoints',
+                              'epoch1.checkpoint')
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli_main(['inspect-checkpoint', '--checkpoint', checkpoint])
+    inspect_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    cli_main(['edit-checkpoint', '--checkpoint', checkpoint, '--key', 'description', '--value',
+              'edited on the card', '--typeof', 'str'])
+    edit_s = time.perf_counter() - t0
+    edited = load_checkpoint_or_weights(checkpoint)
+    print("inspect-checkpoint {:.3f} s: {}; edit-checkpoint {:.3f} s".format(
+        inspect_s, log.getvalue().strip()[:200], edit_s), flush=True)
+    if 'epochs: 2' not in log.getvalue() or edited['description'] != 'edited on the card' \
+            or edited['epoch'] != 1:
+        fail("inspect/edit-checkpoint: {}".format(log.getvalue()[:400]))
+
+    # (e) the augmentation script: K2 on the card.
+    fns = reset_counts()
+    rc = run_script(['show_augmented_inputs_targets', '--dataset', 'cityscapes', 'train',
+                     '--limit', '4', '--output-dir', 'augmented'])
+    k2 = fns['augment_post'].launches
+    shapes = {_png(os.path.join('augmented', n)).shape for n in os.listdir('augmented')}
+    print("run_script show_augmented_inputs_targets --limit 4: rc {}, {} PNGs of {}, augment_post "
+          "launches {}; phase {:.1f} s".format(rc, len(os.listdir('augmented')), shapes, k2,
+                                              time.time() - t_phase), flush=True)
+    if rc != 0 or k2 < 1 or len(os.listdir('augmented')) != 4 or shapes != {(oh, 3 * ow, 3)}:
+        fail("show_augmented_inputs_targets: rc {}, K2 launches {}, {}".format(
+            rc, k2, os.listdir('augmented')))
+
+
 def ptxas_report(log):
     """{mangled kernel name: 'N registers, B bytes smem, S bytes spill
     stores/loads'} from an ``-Xptxas -v`` log."""
@@ -1466,6 +1634,7 @@ def main():
     train_step_phase(name, weights3, 3)
     determinism_phase(name, weights3, 3)
     state_phase(name, counts)
+    commands_phase(name)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -7,24 +7,36 @@
     python -m dualsuperreslearningforsemseg_tpu_torch config-train --file train_stage1_cmdline.json
     python -m dualsuperreslearningforsemseg_tpu_torch benchmark --weights W --dataset cityscapes val
     python -m dualsuperreslearningforsemseg_tpu_torch test --image-file IMG --weights W
+    python -m dualsuperreslearningforsemseg_tpu_torch test --dataset cityscapes val 0 --weights W --no-interactive
+    python -m dualsuperreslearningforsemseg_tpu_torch compile-model --weights W --output-file M.pt2
+    python -m dualsuperreslearningforsemseg_tpu_torch test --images-dir D --weights M.pt2 --compiled-model
+    python -m dualsuperreslearningforsemseg_tpu_torch prune-weights --src-weights W --dest-weights P.weights
+    python -m dualsuperreslearningforsemseg_tpu_torch print-model --stage 3
+    python -m dualsuperreslearningforsemseg_tpu_torch inspect-checkpoint --checkpoint C
+    python -m dualsuperreslearningforsemseg_tpu_torch edit-checkpoint --checkpoint C --key K --value V --typeof int
+    python -m dualsuperreslearningforsemseg_tpu_torch purge-weights-logs --all --yes
 
-The subcommands take the arguments of ``main.py``'s (reference
-main.py:112-208), with ``cuda`` (the default) and ``cpu`` as the devices.
-``train`` runs stages 1, 2 and 3; stage k >= 2 warm-starts from stage
-k-1's ``final.weights`` in the same experiment, so an existing experiment
-directory is taken at stages 2 and 3 (the JAX CLI refuses any existing
-one, so its cascade finds no earlier stage inside an experiment).
+The subcommands are ``main.py``'s (reference main.py:112-208), with the
+same arguments and checks, and ``cuda`` (the default) and ``cpu`` as the
+devices.  ``train`` runs stages 1, 2 and 3; stage k >= 2 warm-starts from
+stage k-1's ``final.weights`` in the same experiment, so an existing
+experiment directory is taken at stages 2 and 3 (the JAX CLI refuses any
+existing one, so its cascade finds no earlier stage inside an experiment).
 ``resume-train`` takes every setting from the checkpoint (main.py:76-80
 there), its device mapped by ``settings.port_device``: a JAX-era
 checkpoint of ``tpu`` resumes on the card.  ``config-train`` turns each key
 of a JSON file into ``--key value`` of a ``train`` run in a spawned child
 process, the device mapped alike, and exits with the child's code.
 ``train`` and ``resume-train`` tee their output to
-``<experiment>/logs/stage{k}/train/stdout.txt``; ``--profile`` (``train``,
-``test``) runs the command under ``torch.profiler`` and writes a Chrome
-trace into ``outputs/profile``.  ``--distributed`` exits with an error
-naming the ROADMAP queue.  ``test``'s dataset mode and
-``--compiled-model`` are not ported yet.
+``<experiment>/logs/stage{k}/train/stdout.txt``; the other commands print
+through the same ``tqdm``-safe override without a log file.  ``--profile``
+(``train``, ``test``) runs the command under ``torch.profiler`` and writes
+a Chrome trace into ``outputs/profile``.  ``compile-model`` writes a
+``torch.export`` program (``.pt2``), not the JAX package's StableHLO, and
+takes ``--device`` (the JAX command exports for its environment's
+backend).  ``purge-weights-logs`` deletes ``weights/stage{k}`` and
+``logs/stage{k}`` under the working directory and exits 0.
+``--distributed`` exits with an error naming the ROADMAP queue.
 """
 
 import argparse
@@ -36,7 +48,8 @@ import sys
 
 from . import settings
 from .utils import (CAUTION, FATAL, INFO, INVALID_FILENAME_CHARS, OverridePrintWithTQDMWriteAndLog,
-                    hasExtension, isInvalidFilename, ValidateDatasetNameAndSplit)
+                    hasExtension, isInvalidFilename, ValidateDatasetNameAndSplit,
+                    ValidateDatasetNameSplitAndIndex)
 
 # options of main.py that the port does not have yet (ROADMAP.md queue 1)
 _NOT_PORTED = ('distributed',)
@@ -92,12 +105,43 @@ def build_parser() -> argparse.ArgumentParser:
     test_source = test_parser.add_mutually_exclusive_group(required=True)
     test_source.add_argument('--image-file', type=str, help="Segment a single image file")
     test_source.add_argument('--images-dir', type=str, help="Segment every JPG/PNG in a directory")
+    test_source.add_argument('--dataset', nargs=3, metavar=('DATASET', 'SPLIT', 'STARTING_INDEX'), const=settings.DATASETS, action=ValidateDatasetNameSplitAndIndex, help="Walk a dataset split, starting at the given index")
     test_parser.add_argument('--output-dir', type=str, default=settings.OUTPUTS_DIR, help="Where to write the visualization PNGs")
-    test_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file")
+    test_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file (or the program compile-model wrote, with --compiled-model)")
     test_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the model runs on (cuda or cpu)")
     test_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
     test_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
-    test_parser.add_argument('--show', action='store_true', help="Open the visualization in the system image viewer after saving it")
+    test_parser.add_argument('--compiled-model', action='store_true', help="Treat --weights as the .pt2 program produced by compile-model")
+    test_parser.add_argument('--show', action='store_true', help="Open each visualization in the system image viewer after saving it")
+    test_parser.add_argument('--no-interactive', action='store_true', help="In dataset mode, do not pause for ENTER between images")
+
+    purge_parser = commands.add_parser('purge-weights-logs', help="Delete saved weights and logs for one stage or all stages")
+    purge_type = purge_parser.add_mutually_exclusive_group(required=True)
+    purge_type.add_argument('--stage', type=int, choices=settings.STAGES, help="Only purge this stage")
+    purge_type.add_argument('--all', action='store_true', help="Purge every stage")
+    purge_parser.add_argument('--yes', action='store_true', help="Assume 'yes' for the confirmation prompt")
+
+    print_model_parser = commands.add_parser('print-model', help="Show the model's layers and parameter counts for a stage")
+    print_model_parser.add_argument('--stage', required=True, type=int, choices=settings.STAGES, help="Stage whose model is built")
+    print_model_parser.add_argument('--dataset', type=str.casefold, choices=settings.DATASETS.keys(), default=list(settings.DATASETS.keys())[0], help="Dataset whose class count applies")
+
+    # Both the reference's misspelled public command name and the correct one.
+    for prune_cmd in ['purne-weights', 'prune-weights']:
+        prune_parser = commands.add_parser(prune_cmd, help="Strip training-only parameters (SISR/FA branches, optimizer state) for deployment")
+        prune_parser.add_argument('--src-weights', required=True, type=str, help="Input .checkpoint/.weights file")
+        prune_parser.add_argument('--dest-weights', required=True, type=str, help="Output inference .weights file")
+        prune_parser.add_argument('--dataset', type=str.casefold, choices=settings.DATASETS.keys(), default=list(settings.DATASETS.keys())[0], help="Dataset whose class count applies")
+        prune_parser.add_argument('--torch-format', action='store_true', help="Write a .pth state dict with torch.save instead")
+        prune_parser.add_argument('--yes', action='store_true', help="Assume 'yes' for overwrite confirmation")
+
+    inspect_parser = commands.add_parser('inspect-checkpoint', help="Print a checkpoint's hyperparameters and bookkeeping")
+    inspect_parser.add_argument('--checkpoint', required=True, type=str, help="The .checkpoint file to inspect")
+
+    edit_parser = commands.add_parser('edit-checkpoint', help="Overwrite one key in a checkpoint file")
+    edit_parser.add_argument('--checkpoint', required=True, type=str, help="The .checkpoint file to modify")
+    edit_parser.add_argument('--key', required=True, type=str, help="Checkpoint dictionary key to set")
+    edit_parser.add_argument('--value', required=True, type=str, help="New value (parsed as --typeof)")
+    edit_parser.add_argument('--typeof', required=True, type=str, help="Python type name the value is coerced to (str/int/float/bool)")
 
     benchmark_parser = commands.add_parser('benchmark', help="Evaluate weights over a dataset split (CE, mIoU, accuracy, throughput)")
     benchmark_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file")
@@ -106,7 +150,25 @@ def build_parser() -> argparse.ArgumentParser:
     benchmark_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
     benchmark_parser.add_argument('--num-workers', default=settings.DEFAULT_NUM_WORKERS, type=int, help="Worker processes decoding input batches")
     benchmark_parser.add_argument('--batch-size', default=settings.DEFAULT_BATCH_SIZE, type=int, help="Samples per evaluation step")
+
+    compile_parser = commands.add_parser('compile-model', help="Export the stage-1 model as a torch.export program (.pt2) for deployment")
+    compile_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file")
+    compile_parser.add_argument('--output-file', required=True, type=str, help="Where the exported program is written")
+    compile_parser.add_argument('--dataset', type=str.casefold, choices=settings.DATASETS.keys(), default=list(settings.DATASETS.keys())[0], help="Dataset whose class count applies")
+    compile_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the program is exported for (cuda or cpu)")
     return parser
+
+
+_WEIGHTS_EXTENSIONS = ('.checkpoint', '.weights')
+
+
+def _check_file(path, flag, extensions=_WEIGHTS_EXTENSIONS, noun='weights file'):
+    """``flag``'s file must exist and, where ``extensions`` are given, have
+    one of them (main.py's messages)."""
+    if extensions and not any(hasExtension(path, x) for x in extensions):
+        raise argparse.ArgumentTypeError("{} expects a {} file.".format(flag, ' or '.join(extensions)))
+    if not os.path.isfile(path):
+        raise argparse.ArgumentTypeError("No such {}: '{}'.".format(noun, path))
 
 
 def _refuse_unported(args):
@@ -129,10 +191,7 @@ def _validate_train(args):
     if not args.checkpoint_history >= 0:
         raise argparse.ArgumentTypeError("--checkpoint-history must be >= 0 (0 disables autosaving).")
     if args.init_weights:
-        if not any(hasExtension(args.init_weights, x) for x in ['.checkpoint', '.weights']):
-            raise argparse.ArgumentTypeError("--init-weights expects a .checkpoint or .weights file.")
-        if not os.path.isfile(args.init_weights):
-            raise argparse.ArgumentTypeError("No such weights file: '{}'.".format(args.init_weights))
+        _check_file(args.init_weights, '--init-weights')
         args.init_weights = os.path.abspath(args.init_weights)
     if not args.batch_size > 0:
         raise argparse.ArgumentTypeError("--batch-size must be a positive integer.")
@@ -191,7 +250,7 @@ def _config_train_argv(filename):
 
 
 def _validate(args):
-    """Post-parse checks (parity: main.py:229-354); raises
+    """Post-parse checks (parity: main.py:229-360); raises
     argparse.ArgumentTypeError with the JAX CLI's messages."""
     if args.command == 'train':
         return _validate_train(args)
@@ -199,21 +258,42 @@ def _validate(args):
         return _validate_resume(args)
     if args.command == 'config-train':
         args.train_argv = _config_train_argv(args.file)
-        return
-    if not any(hasExtension(args.weights, x) for x in ['.checkpoint', '.weights']):
-        raise argparse.ArgumentTypeError("--weights expects a .checkpoint or .weights file.")
-    if not os.path.isfile(args.weights):
-        raise argparse.ArgumentTypeError("No such weights file: '{}'.".format(args.weights))
-    if args.command == 'test':
+    elif args.command == 'test':
         if args.image_file and not os.path.isfile(args.image_file):
             raise argparse.ArgumentTypeError("No such image file: '{}'.".format(args.image_file))
         if args.images_dir and not os.path.isdir(args.images_dir):
             raise argparse.ArgumentTypeError("No such directory: '{}'.".format(args.images_dir))
-    else:
+        # A compiled program may have any name (main.py:307-316).
+        _check_file(args.weights, '--weights', () if args.compiled_model else _WEIGHTS_EXTENSIONS)
+    elif args.command in ('purne-weights', 'prune-weights'):
+        _check_file(args.src_weights, '--src-weights')
+        if os.path.isfile(args.dest_weights):
+            answer = 'y' if args.yes else input(CAUTION("Destination weights file specified already exists. This will overwrite the file. Continue (y/n)? ")).casefold()
+            if answer != 'y':
+                sys.exit(0)
+    elif args.command in ('inspect-checkpoint', 'edit-checkpoint'):
+        _check_file(args.checkpoint, '--checkpoint', ('.checkpoint',), 'checkpoint file')
+    elif args.command in ('benchmark', 'compile-model'):
+        _check_file(args.weights, '--weights')
+    if args.command == 'benchmark':
         if not args.num_workers >= 0:
             raise argparse.ArgumentTypeError("--num-workers must be >= 0.")
         if not args.batch_size > 0:
             raise argparse.ArgumentTypeError("--batch-size must be a positive integer.")
+
+
+def _purge_weights_logs(args):
+    """``purge-weights-logs`` (parity: main.py:317-328): after confirmation,
+    delete ``logs/stage{k}`` and ``weights/stage{k}`` under the working
+    directory for the stage, or for every stage with ``--all``."""
+    answer = 'y' if args.yes else input('This will delete {:s} logs and weights. Continue? (y/n) '.format('all' if args.all else 'stage {:d}'.format(args.stage))).casefold()
+    if answer != 'y':
+        return
+    for stage in (settings.STAGES if args.all else [args.stage]):
+        for dir_ in (settings.LOGS_DIR.format(stage=stage, mode=''),
+                     settings.WEIGHTS_DIR.format(stage=stage)):
+            if os.path.isdir(dir_):
+                shutil.rmtree(dir_)
 
 
 def _config_train_child(argv):
@@ -244,7 +324,9 @@ def _run(kwargs):
     if kwargs['command'] in ('train', 'resume-train'):
         return _train_or_resume(kwargs)
     from . import commands
-    return getattr(commands, kwargs['command'])(**kwargs)
+    name = 'prune_weights' if kwargs['command'] == 'purne-weights' else kwargs['command']
+    with OverridePrintWithTQDMWriteAndLog():
+        return getattr(commands, name.replace('-', '_'))(**kwargs)
 
 
 def main(argv=None):
@@ -259,6 +341,9 @@ def main(argv=None):
         print(FATAL(str(ex)))
         parser.print_usage()
         sys.exit(2)
+    if args.command == 'purge-weights-logs':
+        _purge_weights_logs(args)
+        sys.exit(0)
     if args.command == 'config-train':
         child = multiprocessing.get_context('spawn').Process(target=_config_train_child,
                                                              args=(args.train_argv,))
@@ -275,11 +360,13 @@ def main(argv=None):
         for variable in settings.VARIABLES_IN_CHECKPOINT:
             kwargs[variable] = checkpoint[variable]
         kwargs['device'] = settings.port_device(kwargs['device'])
-    if args.command == 'benchmark':
-        name, split = args.dataset
-        kwargs['dataset'] = dict(settings.DATASETS[name], name=name, split=split)
-    elif args.command in ('train', 'resume-train'):
-        kwargs['dataset'] = dict(settings.DATASETS[args.dataset], name=args.dataset, split='train')
+    if kwargs.get('dataset'):
+        # NAME (split 'train'), [NAME, SPLIT] or [NAME, SPLIT, START_INDEX]
+        # -> the registry entry (parity: main.py:58-70).
+        name, split, *start = ([kwargs['dataset'], 'train'] if isinstance(kwargs['dataset'], str)
+                               else kwargs['dataset'])
+        kwargs['dataset'] = dict(settings.DATASETS[name], name=name, split=split,
+                                 starting_index=start[0] if start else 0)
     if not kwargs.get('profile'):
         return _run(kwargs)
     from torch.profiler import ProfilerActivity, profile

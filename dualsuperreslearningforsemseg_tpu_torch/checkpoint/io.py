@@ -8,7 +8,8 @@ File semantics mirror the reference exactly (SURVEY.md §5, north star):
   model/optimizer state dicts;
 * ``.weights`` — ``{'model_state_dict', 'mixed_precision', 'amp_state_dict'}``
   (reference utils.py:277-282);
-* ``.pth`` — the torch model-zoo format, read with ``torch.load``.
+* ``.pth`` — the torch model-zoo format, read with ``torch.load`` and
+  written by ``prune-weights --torch-format`` with ``torch.save``.
 
 Storage: a zip container holding ``data.json`` (structure + scalars) and one
 ``.npy`` entry per array — self-describing, fast, dependency-free, and
@@ -119,3 +120,12 @@ def save_weights(dir_, filename, model_state_dict, mixed_precision, amp_state_di
                {'model_state_dict': model_state_dict,
                 'mixed_precision': mixed_precision,
                 'amp_state_dict': amp_state_dict})
+
+
+def save_torch_pth(state: dict, filename):
+    """Write a flat dict of tensors (or numpy arrays) as a ``.pth`` that
+    ``torch.load`` reads: contiguous CPU tensors under the same keys (the
+    JAX package writes the same file with its own zip writer)."""
+    import torch
+    torch.save({k: torch.as_tensor(v).detach().cpu().contiguous() for k, v in state.items()},
+               filename)

@@ -4,7 +4,12 @@
 (data/augment.py:562-583), the reference val/test pipeline
 (train_or_resume.py:156-158): label LUT -> /255 -> normalize -> align-
 corners bilinear to the input size (and the output size) for the image,
-torch-nearest to the output size for the label.  No randomness.
+torch-nearest to the output size for the label.  No randomness.  The
+float32 arithmetic is the order in which XLA's CPU compiler runs the JAX
+function, so that on the CPU the images are that package's bits (the
+`test` command's display images are compared bitwise): ``fma(x, 1/255,
+-mean) * (1/std)``, then per axis, H first, ``fma(w1, b, w0 * a)`` for the
+two source rows (columns) a and b of each output.
 
 ``make_eval_loader`` feeds it through ``torch.utils.data.DataLoader``:
 decode in worker processes, uint8 HWC batches in pinned memory, then one
@@ -13,7 +18,8 @@ non-blocking copy to the device.
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from ..ops.resize import _linear_indices_weights
 
 
 def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
@@ -23,21 +29,44 @@ def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.as_tensor(np.clip(src, 0, in_size - 1).astype(np.int64), device=device)
 
 
+def _lerp_resize(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+    """Align-corners bilinear resize of ``x`` along ``dim``: output j is
+    ``fma(w1, b, w0 * a)`` with a, b the source entries at floor and ceil
+    of j*(I-1)/(O-1), w1 their distance from a and w0 = 1 - w1 (the order
+    of XLA's CPU dot over the JAX package's interpolation matrix)."""
+    in_size = x.shape[dim]
+    if in_size == out_size:
+        return x
+    i0, i1, frac = _linear_indices_weights(in_size, out_size)
+    shape = [1] * x.dim()
+    shape[dim] = out_size
+    w0 = torch.from_numpy(1.0 - frac).to(x.device).reshape(shape)
+    w1 = torch.from_numpy(frac).to(x.device).reshape(shape)
+    a = x.index_select(dim, torch.from_numpy(i0).to(x.device, torch.int64))
+    b = x.index_select(dim, torch.from_numpy(i1).to(x.device, torch.int64))
+    return torch.addcmul(a * w0, b, w1)
+
+
 def make_eval_transform_fn(input_hw, output_hw, mean, std, label_lut: np.ndarray):
     """Returns fn(images_u8 (B,H,W,3), segs_u8 (B,H,W)) ->
     ((img_lo, img_hi), (seg_hi, seg)): NHWC float32 images at the input and
-    output sizes, uint8 train-id labels at the output and source sizes."""
+    output sizes (views of contiguous NCHW tensors), uint8 train-id labels
+    at the output and source sizes."""
     input_hw, output_hw = tuple(input_hw), tuple(output_hw)
+    inv_255 = 1.0 / torch.tensor(255.0)                         # float32, as XLA folds it
+    inv_std = 1.0 / torch.tensor(std, dtype=torch.float32)
+
+    def resize(img, out_hw):
+        return _lerp_resize(_lerp_resize(img, 2, out_hw[0]), 3, out_hw[1]).contiguous()
 
     def transform(images_u8, segs_u8):
         device = images_u8.device
-        mean_t = torch.as_tensor(mean, dtype=torch.float32, device=device)
-        std_t = torch.as_tensor(std, dtype=torch.float32, device=device)
+        neg_mean = -torch.as_tensor(mean, dtype=torch.float32, device=device)
         lut = torch.as_tensor(label_lut, dtype=torch.uint8, device=device)
-        img = (images_u8.float() / 255.0 - mean_t) / std_t
+        img = torch.addcmul(neg_mean, images_u8.float(), inv_255.to(device)) * inv_std.to(device)
         img = img.permute(0, 3, 1, 2)
-        img_lo = F.interpolate(img, size=input_hw, mode='bilinear', align_corners=True)
-        img_hi = F.interpolate(img, size=output_hw, mode='bilinear', align_corners=True)
+        img_lo = resize(img, input_hw)
+        img_hi = resize(img, output_hw)
         seg = lut[segs_u8.long()]
         rows = _nearest_indices(seg.shape[1], output_hw[0], device)
         cols = _nearest_indices(seg.shape[2], output_hw[1], device)

@@ -70,3 +70,12 @@ def load_state_dict(model: nn.Module, flat: Dict, strict: bool = True
         tensors[key] = src.to(target.dtype)
     model.load_state_dict(tensors, strict=False)
     return missing, unexpected
+
+
+def count_params(model: nn.Module) -> Tuple[int, int]:
+    """(trainable, total) parameter counts: ``model.parameters()`` only, BN
+    buffers excluded (reference utils.py:262-268, the JAX package's
+    ``count_params``)."""
+    params = list(model.parameters())
+    return (sum(p.numel() for p in params if p.requires_grad),
+            sum(p.numel() for p in params))

@@ -23,8 +23,9 @@ matrix, through a fused multiply-add, differs there in a third of the
 values, and the stage-3 parity test over three SGD steps amplifies that).
 The backward is the JAX function's transpose, one product with the whole
 matrix per axis.  The matrices are made with numpy in float32, as the JAX
-package makes them, and kept per (in size, out size, device): they are
-constants, not parameters or buffers, so the state dict does not change.
+package makes them, and kept per (in size, out size, device), except in a
+trace: they are constants, not parameters or buffers, so the state dict
+does not change.
 """
 
 import functools
@@ -59,11 +60,19 @@ def _interp_matrix(in_size: int, out_size: int):
     return m
 
 
-@functools.lru_cache(maxsize=None)
 def _matrices_on(in_size: int, out_size: int, device: torch.device):
-    """(m, m0, m1) on ``device``, copied there once: :func:`_interp_matrix`
-    and its parts of the ``1 - frac`` and the ``frac`` weights (m0 + m1 = m,
-    one nonzero a row each)."""
+    """(m, m0, m1) on ``device``: :func:`_interp_matrix` and its parts of the
+    ``1 - frac`` and the ``frac`` weights (m0 + m1 = m, one nonzero a row
+    each).  Eager calls share one copy per (in, out, device).  A trace
+    (``torch.export``, ``torch.compile``) gets its own: what it creates are
+    fake tensors, which, cached, would make every later eager call return
+    fake tensors too."""
+    if torch.compiler.is_compiling():
+        return _make_matrices(in_size, out_size, device)
+    return _cached_matrices(in_size, out_size, device)
+
+
+def _make_matrices(in_size: int, out_size: int, device: torch.device):
     i0, i1, frac = _linear_indices_weights(in_size, out_size)
     rows = np.arange(out_size)
     m0 = np.zeros((out_size, in_size), dtype=np.float32)
@@ -72,6 +81,9 @@ def _matrices_on(in_size: int, out_size: int, device: torch.device):
     m1[rows, i1] = frac
     m = _interp_matrix(in_size, out_size)
     return tuple(torch.from_numpy(t).to(device) for t in (m, m0, m1))
+
+
+_cached_matrices = functools.lru_cache(maxsize=None)(_make_matrices)
 
 
 class _ResizeBilinear(torch.autograd.Function):

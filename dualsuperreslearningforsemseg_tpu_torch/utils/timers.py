@@ -15,14 +15,18 @@ def makeSecondsPretty(time_elapsed):
 
 
 class timethis:
+    """Prints ``message`` formatted with the block's wall time; the seconds
+    are kept in ``elapsed``."""
+
     def __init__(self, message):
         self.message = message
         self.start_time = None
+        self.elapsed = None
 
     def __enter__(self):
         self.start_time = datetime.now()
         return self
 
     def __exit__(self, exc_type, value, traceback):
-        elapsed = (datetime.now() - self.start_time).total_seconds()
-        print(self.message.format(makeSecondsPretty(elapsed)))
+        self.elapsed = (datetime.now() - self.start_time).total_seconds()
+        print(self.message.format(makeSecondsPretty(self.elapsed)))

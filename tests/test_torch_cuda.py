@@ -47,6 +47,9 @@ device.  Run on the GPU machine with
   CPU suite's small size and depth (the sizes set on ``settings`` for the
   test), then ``resume-train`` twice from its ``epoch1.checkpoint`` in this
   process: the two ``final.weights`` bitwise equal.
+* ``compile-model`` on the card at that size: the exported program's class
+  map equals the eager model's except at pixels whose top-2 logits lie
+  within 1e-4.
 """
 
 import numpy as np
@@ -398,3 +401,35 @@ def test_two_resumes_from_one_checkpoint_are_bitwise_equal(cuda, tmp_path, monke
     assert set(finals[0]) == set(finals[1])
     differ = [k for k in finals[0] if not np.array_equal(finals[0][k], finals[1][k])]
     assert not differ, differ
+
+
+def test_compiled_model_matches_eager_on_the_card(cuda, tmp_path, monkeypatch):
+    """``compile-model`` on the card at the CPU suite's small size and
+    depth, then the exported program's class map against the eager
+    model's: equal except at pixels whose eager top-2 logits lie within
+    1e-4 (the exported graph may run other kernels)."""
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import save_weights
+    from dualsuperreslearningforsemseg_tpu_torch.commands import compile_model
+    from dualsuperreslearningforsemseg_tpu_torch.commands.compile_model import load_compiled_model
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import load_model
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, init_weights
+    for name, value in (('MODEL_INPUT_SIZE', (64, 128)), ('MODEL_OUTPUT_SIZE', (128, 256)),
+                        ('BACKBONE_LAYERS', (1, 1, 2, 1))):
+        monkeypatch.setattr(settings, name, value)
+    model = init_weights(DSRL(num_classes=19), torch.Generator().manual_seed(54321))
+    save_weights(str(tmp_path), 'stage1.weights',
+                 {k: v.numpy() for k, v in model.state_dict().items()}, None)
+    weights, program = str(tmp_path / 'stage1.weights'), str(tmp_path / 'model.pt2')
+    res = compile_model(weights=weights, output_file=program,
+                        dataset=dict(settings.DATASETS['cityscapes']), device='cuda')
+    assert res['bytes'] > 1_000_000
+    x = torch.randn(2, 1, 3, 64, 128, generator=torch.Generator().manual_seed(0)).to(cuda)
+    eager, compiled = load_model(weights, 19, cuda), load_compiled_model(program, cuda)
+    with torch.inference_mode():
+        for xi in x:
+            ref, got = eager(xi)[0], compiled(xi)[0]
+            assert got.is_cuda and got.shape == ref.shape == (1, 19, 128, 256)
+            top2 = ref.topk(2, dim=1).values
+            near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-4
+            assert torch.all((ref.argmax(1) == got.argmax(1)) | near_tie)
