@@ -124,7 +124,38 @@ nothing of JAX.  Phases, each fatal on failure:
    the stage-3 model's parameters; ``inspect-checkpoint`` and
    ``edit-checkpoint`` on phase 12's ``epoch1.checkpoint``; then
    ``run_script show_augmented_inputs_targets --limit 4``, with the counts
-   reset before it, must launch K2 and write 4 PNGs.
+   reset before it, must launch K2 and write 4 PNGs;
+14. multi-process training: (a) two gloo ranks on cuda:0, spawned through
+   the port's ``parallel.spawn_ranks``, each with phase 9's stage-3 model
+   (its final ConvT scaled by 8, so the logits are far from uniform;
+   dropout off, live BatchNorm, made cross-rank by the step), validate the
+   first 35 val frames (4 a rank, one pad entry masked) and take one step
+   of the fused train step on 4 of 8 warped train frames (the photometric
+   draws off, so both sides see the same images; the second half 80
+   levels brighter and 75 % of its labels ignored), against one process
+   at batch 8 from the same state, both sides with cuDNN's autotuner off:
+   losses within rel 1e-4, equal on both ranks; BN running statistics
+   within 1e-3 of each leaf's largest; each leaf's SGD update within 1e-3
+   of the leaf's largest update, or within twice the sum of the two
+   steps' floors for that leaf where that is larger, and the largest gap
+   of any leaf within twice the sum of their floors, over the largest
+   update of any leaf (a step's floor: its largest gap to itself on the
+   same frames in other orders, six for the one process, three of each
+   rank's frames for the ranks; every leaf's gaps go to
+   ``distributed/leaf_gaps.json``); the witness, both ranks stepping on the
+   whole batch (the 2-rank arithmetic with no split), within that same
+   global limit; the validation's mIoU and accuracy equal to 2 decimals
+   and CE
+   within 1e-3; each rank launching K1 forward and backward, K2 and K4
+   backward once, K4 forward once and once a val batch, K3 once a val
+   batch.  It prints what a mean of the ranks' CE means and a per-rank
+   BatchNorm would have made of the global CE (each must miss by more than
+   rel 1e-4), each rank's peak device memory (validation, step) and the
+   2-rank and 1-process step times (both ranks share the card: not a
+   scaling number).  (b) ``train --stage 1 --epochs 1 --batch-size 8
+   --disable-cudnn-benchmark --distributed 127.0.0.1 <port> 1 1 nccl ' ' 0``
+   and the same without ``--distributed``, each a fresh process: one set
+   of master files each, ``final.weights`` bitwise equal.
 
 Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
 TB/s and its operations over the card's peak for their type: the 19x19
@@ -1035,8 +1066,8 @@ def train_step_phase(device_name, weights, stage):
 
     # (a) The kernel against the plain part, one step each from the same state.
     if stage == 1:
-        swap = ('fused_convt2_ce_mean', fused_tail.fused_convt2_ce_mean,
-                fused_tail.fused_convt2_ce_mean_plain, 'K1', 'the plain tail')
+        swap = ('fused_convt2_ce_sum', fused_tail.fused_convt2_ce_sum,
+                fused_tail.fused_convt2_ce_sum_plain, 'K1', 'the plain tail')
     else:
         swap = ('fa_loss', fa_module.fa_loss, lambda a, b: fa_module.fa_loss(a, b, impl='dense'),
                 'K4', 'the dense FA')
@@ -1151,7 +1182,7 @@ def train_step_phase(device_name, weights, stage):
 
     def spy_k1(x, *args):
         seen['K1'].append(x.dtype)
-        return fused_tail.fused_convt2_ce_mean(x, *args)
+        return fused_tail.fused_convt2_ce_sum(x, *args)
 
     def spy_k4(a, b):
         seen['K4'].append(a.dtype)
@@ -1167,11 +1198,11 @@ def train_step_phase(device_name, weights, stage):
         return bf16_step(imgs_w, segs_w, lr, gen)
 
     k4_mean = fa_module.fa_allpairs_abs_mean
-    steps.fused_convt2_ce_mean, fa_module.fa_allpairs_abs_mean = spy_k1, spy_k4
+    steps.fused_convt2_ce_sum, fa_module.fa_allpairs_abs_mean = spy_k1, spy_k4
     try:
         bf16_losses = {k: (float(v), str(v.dtype)) for k, v in whole_bf16_step().items()}
     finally:
-        steps.fused_convt2_ce_mean = fused_tail.fused_convt2_ce_mean
+        steps.fused_convt2_ce_sum = fused_tail.fused_convt2_ce_sum
         fa_module.fa_allpairs_abs_mean = k4_mean
     times['bf16_step_ms'] = cuda_ms(whole_bf16_step, iters=5, warmup=1)
     times['bf16_step_img_per_s'] = 8 / times['bf16_step_ms'] * 1e3
@@ -1525,6 +1556,380 @@ def commands_phase(device_name):
             rc, k2, os.listdir('augmented')))
 
 
+# Phase 14: multi-process training.  The ranks are spawned processes that run
+# this module's _distributed_rank; every number they report goes through a
+# JSON file in the phase's work directory.
+DIST_LR = 0.006
+DIST_VAL_FRAMES = 35      # an odd count: the 2-rank pass pads one entry
+DIST_TAIL_SCALE = 8.0
+# The noise floors of the two steps compared: the same frames in other
+# orders (the same sums, rounded in another order), the 8 frames of the
+# one-process step and each rank's 4.
+DIST_REORDERS = {'halves_swapped': [4, 5, 6, 7, 0, 1, 2, 3], 'reversed': [7, 6, 5, 4, 3, 2, 1, 0],
+                 'interleaved': [0, 4, 1, 5, 2, 6, 3, 7], 'shuffled_a': [2, 7, 4, 1, 6, 0, 5, 3],
+                 'shuffled_b': [5, 0, 3, 6, 1, 7, 2, 4], 'shuffled_c': [1, 3, 0, 7, 5, 2, 6, 4]}
+DIST_RANK_REORDERS = {'reversed': [3, 2, 1, 0], 'rotated': [1, 2, 3, 0], 'shuffled': [2, 0, 3, 1]}
+
+
+def _distributed_inputs(work):
+    import torch
+    return (torch.load(os.path.join(work, 'state.pt')), torch.load(os.path.join(work, 'frames.pt')))
+
+
+def _distributed_parts(stage_model_state, device):
+    """The stage-3 model (dropout off) on ``device``, its SGD and the fused
+    train step with a photometric tail that draws nothing (blur and
+    grayscale off), so one process and two ranks see the same images."""
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.data import AugmentConfig, make_device_post_fn
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, load_state_dict
+    from dualsuperreslearningforsemseg_tpu_torch.models.dsrl import SISR_UPSCALE
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_sgd
+    ds = settings.DATASETS['cityscapes']['settings']
+    model = DSRL(num_classes=NUM_CLASSES, stage=3)
+    load_state_dict(model, stage_model_state, strict=True)
+    model = no_dropout(model).to(device)
+    cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
+                        mean=ds.MEAN, std=ds.STD, blur_p=0.0, grayscale_p=0.0)
+    return model, make_sgd(model, DIST_LR, 0.9, 0.0005), make_device_post_fn(cfg, unshuffle_hi=SISR_UPSCALE)
+
+
+def _distributed_validation(model, device, world, rank):
+    """The port's collective validation (commands/train_or_resume.py::validate)
+    of the model in eval mode over the first DIST_VAL_FRAMES val frames, 4 a
+    rank (8 in one process)."""
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.commands.train_or_resume import validate
+    from dualsuperreslearningforsemseg_tpu_torch.data import (
+        CityscapesDataset, make_eval_loader, make_eval_transform_fn)
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_eval_step
+    ds = settings.DATASETS['cityscapes']['settings']
+    w1, w2 = settings.DEFAULT_LOSS_WEIGHTS
+    val = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='val')
+    val.pairs = val.pairs[:DIST_VAL_FRAMES]
+    transform = make_eval_transform_fn(settings.MODEL_INPUT_SIZE, settings.MODEL_OUTPUT_SIZE,
+                                       ds.MEAN, ds.STD, ds.LABEL_MAPPING_LUT)
+    loader = make_eval_loader(val, 8 // world, 0, device, world, rank)
+    losses, miou, accuracy = validate(model, make_eval_step(NUM_CLASSES, 255, 3, w1, w2), loader,
+                                      transform, device, NUM_CLASSES)
+    return {'CE': losses[0], 'MSE': losses[1], 'FA': losses[2], 'mIoU': miou, 'accuracy': accuracy,
+            'batches': len(loader)}
+
+
+def _leaf_gaps(got, ref):
+    """max |got - ref| over max |ref| for each leaf (0/0 counts as 0)."""
+    gaps = {}
+    for k, r in ref.items():
+        d = float((got[k].detach().float().cpu() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        gaps[k] = d / scale if scale > 0 else (0.0 if d == 0 else float('inf'))
+    return gaps
+
+
+def _top(gaps, k=5):
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:k])
+
+
+def _gap_over_largest(got, ref):
+    """max |got - ref| over every leaf, over the largest |ref| of any leaf."""
+    largest = max(float(r.float().abs().max()) for r in ref.values())
+    return max(float((got[k].detach().float().cpu() - r.float()).abs().max())
+               for k, r in ref.items()) / largest
+
+
+def _distributed_rank(local_rank, work, port):
+    """One of two gloo ranks on cuda:0 (phase 14 (a)): the collective
+    validation, one train step on its half of the frames against the
+    one-process reference, timed steps, the witness (one step from the
+    same state on the whole global batch in both ranks: the 2-rank path's
+    arithmetic with no split), then the 2-rank step's own floor (the step
+    again with each rank's frames in DIST_RANK_REORDERS' orders); writes
+    rank{r}.json."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch import parallel, settings
+    from dualsuperreslearningforsemseg_tpu_torch.models import load_state_dict
+    from dualsuperreslearningforsemseg_tpu_torch.models.norm import CrossRankBatchNorm2d
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step
+    from dualsuperreslearningforsemseg_tpu_torch.utils import select_device
+    # Both ranks share the one card; no autotuning workspaces beside each other.
+    device = select_device('cuda', cudnn_benchmark=False, local_rank=0)
+    parallel.initialize_distributed(dict(MASTER_ADDR='127.0.0.1', MASTER_PORT=port, NODES=1,
+                                         DEVICES_PER_NODE=2, BACKEND='gloo', INIT_METHOD=None,
+                                         NODE_ID=0), local_rank, device)
+    rank = parallel.rank()
+    w1, w2 = settings.DEFAULT_LOSS_WEIGHTS
+    state, frames = _distributed_inputs(work)
+    model, optimizer, post = _distributed_parts(state, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fns = reset_counts()
+    val = _distributed_validation(model, device, 2, rank)
+    val_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(model, optimizer, 3, w1, w2, 255, False, post_fn=post)
+    imgs, segs = (frames[k][4 * rank:4 * rank + 4].to(device) for k in ('imgs', 'segs'))
+    gen = torch.Generator(device=device).manual_seed(5)
+    losses = {k: float(v) for k, v in step(imgs, segs, DIST_LR, gen).items()}
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    ref = torch.load(os.path.join(work, 'reference.pt'))
+    updates = {k: v.cpu() for k, v in sgd_updates(optimizer, model, DIST_LR).items()}
+    buffers = {k: v for k, v in model.state_dict().items() if k.endswith(('running_mean', 'running_var'))}
+    tracked = {k: int(v) for k, v in model.state_dict().items() if k.endswith('num_batches_tracked')}
+    upd_gap, bn_gap = _leaf_gaps(updates, ref['updates']), _leaf_gaps(buffers, ref['buffers'])
+    parallel.barrier()
+    step_ms = cuda_ms(lambda: step(imgs, segs, DIST_LR, gen), iters=3, warmup=1)
+    step_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    load_state_dict(model, state, strict=True)
+    optimizer.state.clear()
+    step(frames['imgs'].to(device), frames['segs'].to(device), DIST_LR,
+         torch.Generator(device=device).manual_seed(5))
+    whole = {k: v.cpu() for k, v in sgd_updates(optimizer, model, DIST_LR).items()}
+    own_floor, own_floor_global = {}, 0.0
+    for order in DIST_RANK_REORDERS.values():
+        load_state_dict(model, state, strict=True)
+        optimizer.state.clear()
+        order = torch.tensor(order, device=device)
+        step(imgs[order], segs[order], DIST_LR, torch.Generator(device=device).manual_seed(5))
+        reordered = {k: v.cpu() for k, v in sgd_updates(optimizer, model, DIST_LR).items()}
+        for k, g in _leaf_gaps(reordered, updates).items():
+            own_floor[k] = max(own_floor.get(k, 0.0), g)
+        own_floor_global = max(own_floor_global, _gap_over_largest(reordered, updates))
+    out = {'rank': rank, 'losses': losses, 'counts': counts, 'val': val,
+           'cross_rank_bn_modules': sum(isinstance(m, CrossRankBatchNorm2d) for m in model.modules()),
+           'update_gaps': upd_gap, 'update_gaps_top5': _top(upd_gap),
+           'update_gap_over_largest_update': _gap_over_largest(updates, ref['updates']),
+           'own_floor_gaps': own_floor, 'own_floor_gap_over_largest_update': own_floor_global,
+           'witness_gaps': _leaf_gaps(whole, ref['updates']),
+           'witness_gap_over_largest_update': _gap_over_largest(whole, ref['updates']),
+           'split_vs_witness_gaps_top5': _top(_leaf_gaps(updates, whole)),
+           'split_vs_witness_gap_over_largest_update': _gap_over_largest(updates, whole),
+           'max_bn_gap': max(bn_gap.values()), 'worst_bn': max(bn_gap, key=bn_gap.get),
+           'num_batches_tracked_equal': tracked == ref['tracked'],
+           'update_digest': float(sum(u.double().sum() for u in updates.values())),
+           'step_ms': step_ms, 'val_peak_gib': val_peak,
+           'step_peak_gib': step_peak}
+    with open(os.path.join(work, 'rank{}.json'.format(rank)), 'w') as f:
+        json.dump(out, f)
+    parallel.barrier()
+    parallel.destroy_process_group()
+
+
+def _ce_miss(model, imgs_w, segs_w, post):
+    """What two faults would report as the CE of the step's first forward, beside the
+    true global CE: the mean of the two halves' CE means, and the global CE
+    with BatchNorm statistics per half.  Train mode, no gradient; the
+    running statistics this moves are reloaded by the caller."""
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import fused_convt2_ce_sum
+    tail = model.SSSR_decoder.upsample16_pred[6]
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    (img_lo, _), (seg_hi, _) = post(imgs_w, segs_w, gen)
+    x = img_lo.permute(0, 3, 1, 2).contiguous()
+    model.train()
+
+    def sums(sssr, labels):
+        return fused_convt2_ce_sum(sssr.contiguous(), tail.weight, tail.bias, labels.contiguous())
+
+    with torch.no_grad():
+        whole = model(x, pre_tail=True)[0]
+        halves = [sums(whole[h:h + 4], seg_hi[h:h + 4]) for h in (0, 4)]
+        per_half_bn = [sums(model(x[h:h + 4], pre_tail=True)[0], seg_hi[h:h + 4]) for h in (0, 4)]
+    total = sum(float(s) for s, _ in halves) / sum(float(c) for _, c in halves)
+    mean_of_means = sum(float(s) / float(c) for s, c in halves) / 2
+    per_rank_bn = sum(float(s) for s, _ in per_half_bn) / sum(float(c) for _, c in per_half_bn)
+    return total, mean_of_means, per_rank_bn
+
+
+def distributed_phase(device_name, smi, weights3):
+    """Multi-process training (phase 14): (a) two gloo ranks on cuda:0 at
+    full depth, stage 3, against one process at the global batch; (b)
+    ``train --distributed`` at world 1 under nccl against ``train``; (c)
+    the two step times."""
+    import copy
+    import numpy as np
+    import torch
+    from dualsuperreslearningforsemseg_tpu_torch import parallel, settings
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.data import (
+        AugmentConfig, CityscapesDataset, make_warp_transform)
+    from dualsuperreslearningforsemseg_tpu_torch.models import load_state_dict
+    from dualsuperreslearningforsemseg_tpu_torch.train import make_train_step
+    t_phase = time.time()
+    work = os.path.abspath('distributed')
+    os.makedirs(work, exist_ok=True)
+    ds = settings.DATASETS['cityscapes']['settings']
+    w1, w2 = settings.DEFAULT_LOSS_WEIGHTS
+
+    # The global batch: 8 warped train frames; the second half brighter by
+    # 80 levels and with 75 % of its labels ignored.
+    train_set = CityscapesDataset(os.path.join('datasets', 'Cityscapes', 'data'), split='train')
+    imgs, segs = (torch.from_numpy(np.stack(a)).cuda() for a in zip(*(train_set[i] for i in range(8))))
+    cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
+                        mean=ds.MEAN, std=ds.STD)
+    imgs, segs = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED)(1, 0, imgs, segs)
+    imgs[4:] = (imgs[4:].int() + 80).clamp(max=255).to(torch.uint8)
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    drop = torch.rand(segs[4:].shape, generator=gen, device='cuda') < 0.75
+    segs[4:] = torch.where(drop, torch.full_like(segs[4:], 255), segs[4:])
+    state = {k: torch.as_tensor(v) for k, v in
+             load_checkpoint_or_weights(weights3)['model_state_dict'].items()}
+    # Logits far from uniform: near ln 19 at every pixel, no weighting of the
+    # pixels (the fault of a mean of per-rank means) would show.
+    for k in ('SSSR_decoder.upsample16_pred.6.weight', 'SSSR_decoder.upsample16_pred.6.bias'):
+        state[k] = state[k] * DIST_TAIL_SCALE
+    torch.save(state, os.path.join(work, 'state.pt'))
+    torch.save({'imgs': imgs.cpu(), 'segs': segs.cpu()}, os.path.join(work, 'frames.pt'))
+
+    # One process at batch 8: the validation, the misses, the step, its time.
+    # cuDNN picks its algorithms as in the ranks (no autotuning): another
+    # algorithm would round the same sums in another order.
+    torch.backends.cudnn.benchmark = False
+    model, optimizer, post = _distributed_parts(state, torch.device('cuda'))
+    val_1 = _distributed_validation(model, torch.device('cuda'), 1, 0)
+    total, mean_of_means, per_rank_bn = _ce_miss(model, imgs, segs, post)
+    load_state_dict(model, state, strict=True)
+    step = make_train_step(model, optimizer, 3, w1, w2, 255, False, post_fn=post)
+    step_gen = torch.Generator(device='cuda').manual_seed(5)
+    loss_1 = {k: float(v) for k, v in step(imgs, segs, DIST_LR, step_gen).items()}
+    torch.cuda.synchronize()
+    sd = model.state_dict()
+    updates_1 = {k: v.cpu() for k, v in sgd_updates(optimizer, model, DIST_LR).items()}
+    torch.save({'updates': updates_1,
+                'buffers': {k: v.cpu() for k, v in sd.items()
+                            if k.endswith(('running_mean', 'running_var'))},
+                'tracked': {k: int(v) for k, v in sd.items() if k.endswith('num_batches_tracked')}},
+               os.path.join(work, 'reference.pt'))
+    one_ms = cuda_ms(lambda: step(imgs, segs, DIST_LR, step_gen), iters=3, warmup=1)
+    # The noise floor of the one-process step in float32: the same step on
+    # the same frames in DIST_REORDERS' orders; each leaf's floor is its
+    # largest gap to the step above over the orders, and so is the floor
+    # of the gap over the largest update.
+    floor_gap, floor_global, order_gaps = {}, {}, {}
+    for order_name, order in DIST_REORDERS.items():
+        load_state_dict(model, state, strict=True)
+        optimizer.state.clear()
+        order = torch.tensor(order, device='cuda')
+        step(imgs[order], segs[order], DIST_LR, torch.Generator(device='cuda').manual_seed(5))
+        reordered = {k: v.cpu() for k, v in sgd_updates(optimizer, model, DIST_LR).items()}
+        order_gaps[order_name] = _leaf_gaps(reordered, updates_1)
+        for k, g in order_gaps[order_name].items():
+            floor_gap[k] = max(floor_gap.get(k, 0.0), g)
+        floor_global[order_name] = _gap_over_largest(reordered, updates_1)
+    floor = {'max_update_gap': max(floor_gap.values()), 'update_gaps_top5': _top(floor_gap),
+             'update_gap_over_largest_update': max(floor_global.values()),
+             'gap_over_largest_update_by_order': floor_global}
+    del model, optimizer, step, sd, updates_1
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+
+    # (a) Two ranks.
+    t0 = time.time()
+    parallel.spawn_ranks(_distributed_rank, 2, (work, free_port()))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, 'rank{}.json'.format(r))) as f:
+            ranks.append(json.load(f))
+    rel = {k: abs(ranks[0]['losses'][k] - loss_1[k]) / max(abs(loss_1[k]), 1e-30) for k in loss_1}
+    misses = {'mean_of_rank_CE_means': abs(mean_of_means - total) / total,
+              'per_rank_batchnorm': abs(per_rank_bn - total) / total}
+    want = {'fused_tail_forward': 1, 'fused_tail_backward': 1, 'augment_post': 1,
+            'fa_pairwise_forward': 1 + ranks[0]['val']['batches'], 'fa_pairwise_backward': 1,
+            'eval_tail': ranks[0]['val']['batches']}
+    out = {'loss_rel_gaps': rel, 'misses_of_the_faults_rel': misses, 'global_CE': total,
+           'one_process_losses': loss_1, 'one_process_val': val_1, 'one_process_step_ms': one_ms,
+           'one_process_reorders_floor': floor, 'ranks': ranks, 'seconds': time.time() - t0}
+    # Two float32 computations of one step differ by their rounding: each
+    # leaf's SGD update is held within 1e-3 of the leaf's largest, or
+    # within twice the sum of the two steps' own floors for that leaf where
+    # that is larger (a BatchNorm's bias gradient sums terms that nearly
+    # cancel); the largest gap of any leaf, and the witness's, within twice
+    # the sum of the floors', over the largest update of any leaf.  A
+    # reorder does not move a fault of the step, so a fault does not
+    # raise its own limit.
+    with open(os.path.join(work, 'leaf_gaps.json'), 'w') as f:
+        json.dump({'one_process_orders': order_gaps,
+                   'ranks': [{k: r[k] for k in ('update_gaps', 'own_floor_gaps', 'witness_gaps')}
+                             for r in ranks]}, f)
+    for r in ranks:
+        own = r.pop('own_floor_gaps')
+        r['witness_gaps_top5'] = _top(r.pop('witness_gaps'))
+        excess = {k: g / max(1e-3, 2 * (floor_gap[k] + own[k]))
+                  for k, g in r.pop('update_gaps').items()}
+        r['own_floor_top5'] = _top(own)
+        r['update_gap_over_limit_top5'] = _top(excess)
+        r['max_update_gap_over_limit'] = max(excess.values())
+        r['global_update_limit'] = 2 * (floor['update_gap_over_largest_update']
+                                        + r['own_floor_gap_over_largest_update'])
+    print("2 gloo ranks on cuda:0 ({}), full depth, stage 3, batch 4 a rank vs one process at "
+          "batch 8: {}".format(device_name, json.dumps(out)), flush=True)
+    for r in ranks:
+        if r['counts'] != want:
+            fail("rank {} launched {} (want {})".format(r['rank'], r['counts'], want))
+        if not (r['max_update_gap_over_limit'] <= 1
+                and r['update_gap_over_largest_update'] <= r['global_update_limit']
+                and r['witness_gap_over_largest_update'] <= r['global_update_limit']
+                and r['max_bn_gap'] <= 1e-3
+                and r['num_batches_tracked_equal']
+                and r['cross_rank_bn_modules'] > 0 and r['losses'] == ranks[0]['losses']):
+            fail("rank {} differs from the one-process step: {}".format(r['rank'], r))
+        for key in ('mIoU', 'accuracy'):
+            if '{:.2f}'.format(r['val'][key]) != '{:.2f}'.format(val_1[key]):
+                fail("rank {}'s validation {} {} vs one process's {}".format(
+                    r['rank'], key, r['val'][key], val_1[key]))
+        if abs(r['val']['CE'] - val_1['CE']) > 1e-3:
+            fail("rank {}'s validation CE {} vs one process's {}".format(r['rank'], r['val']['CE'],
+                                                                         val_1['CE']))
+    if max(rel.values()) > 1e-4 or ranks[0]['update_digest'] != ranks[1]['update_digest']:
+        fail("the 2-rank step's losses or updates: {} {}".format(rel, [r['update_digest'] for r in ranks]))
+    if min(misses.values()) <= 1e-4:
+        fail("these inputs do not show the faults: {}".format(misses))
+
+    # (b) train --distributed at world 1 under nccl against train.
+    finals, seconds, written = {}, {}, {}
+    for name, extra in (('smoke_plain1', []),
+                        ('smoke_nccl1', ['--distributed', '127.0.0.1', str(free_port()), '1', '1',
+                                         'nccl', ' ', '0'])):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, '-m', 'dualsuperreslearningforsemseg_tpu_torch', 'train',
+                               '--stage', '1', '--epochs', '1', '--batch-size', '8', '--dataset',
+                               'cityscapes', '--disable-cudnn-benchmark', '--experiment-id', name]
+                              + extra, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                              text=True, timeout=600)
+        seconds[name] = time.time() - t0
+        if proc.returncode != 0:
+            fail("train {}: exit {}\n{}".format(name, proc.returncode, proc.stderr[-4000:]))
+        exp = os.path.join('experiments', name)
+        files = sorted(os.path.relpath(os.path.join(d, f), exp) for d, _, fs in os.walk(exp) for f in fs)
+        names = [os.path.basename(f) for f in files]
+        if [names.count(n) for n in ('final.weights', 'params.txt', 'stdout.txt')] != [1, 1, 1] \
+                or len(files) != len(written.get('smoke_plain1', files)):
+            fail("train {} wrote {}".format(name, files))
+        written[name] = files
+        finals[name] = load_checkpoint_or_weights(os.path.join(exp, 'weights', 'stage1',
+                                                               'final.weights'))['model_state_dict']
+    differ = _same_arrays(finals['smoke_plain1'], finals['smoke_nccl1'])
+    print("train --stage 1 at world 1 under nccl vs without --distributed ({}): {} tensors, {} differ; "
+          "seconds {}".format(device_name, len(finals['smoke_nccl1']), len(differ), json.dumps(seconds)),
+          flush=True)
+    if differ:
+        fail("world-1 nccl final.weights differ from the single-process run's: {}".format(differ[:5]))
+
+    # (c) The step times (both ranks share the one card: not a scaling number).
+    print("phase 14 step times on {} ({}): one process at batch 8 {:.2f} ms, 2 gloo ranks at "
+          "batch 4 each {:.2f} / {:.2f} ms; peak device memory per rank, validation {:.2f} / "
+          "{:.2f} GiB, train step {:.2f} / {:.2f} GiB; phase {:.1f} s".format(
+              device_name, smi, one_ms, ranks[0]['step_ms'], ranks[1]['step_ms'],
+              ranks[0]['val_peak_gib'], ranks[1]['val_peak_gib'], ranks[0]['step_peak_gib'],
+              ranks[1]['step_peak_gib'], time.time() - t_phase), flush=True)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
 def ptxas_report(log):
     """{mangled kernel name: 'N registers, B bytes smem, S bytes spill
     stores/loads'} from an ``-Xptxas -v`` log."""
@@ -1635,6 +2040,7 @@ def main():
     determinism_phase(name, weights3, 3)
     state_phase(name, counts)
     commands_phase(name)
+    distributed_phase(name, smi, weights3)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -36,10 +36,20 @@ a Chrome trace into ``outputs/profile``.  ``compile-model`` writes a
 takes ``--device`` (the JAX command exports for its environment's
 backend).  ``purge-weights-logs`` deletes ``weights/stage{k}`` and
 ``logs/stage{k}`` under the working directory and exits 0.
-``--distributed`` exits with an error naming the ROADMAP queue.
+
+``train`` and ``resume-train`` take ``--distributed MASTER_ADDR MASTER_PORT
+NODES DEVICES_PER_NODE BACKEND INIT_METHOD NODE_ID`` (main.py:135,168
+there; the tuple as utils/validators.py parses it): this process checks
+every argument once, then spawns ``DEVICES_PER_NODE`` ranks, each running
+the command on ``cuda:local_rank`` (or the CPU) in the process group of
+``NODES * DEVICES_PER_NODE`` ranks (parallel/mesh.py), and exits non-zero
+when any rank fails.  A backend the device cannot serve, and more ranks per
+node than visible cards, exit with code 2 before any work.  Only rank 0
+tees ``stdout.txt`` and, with ``--profile``, writes the trace.
 """
 
 import argparse
+import importlib
 import json
 import multiprocessing
 import os.path
@@ -49,10 +59,10 @@ import sys
 from . import settings
 from .utils import (CAUTION, FATAL, INFO, INVALID_FILENAME_CHARS, OverridePrintWithTQDMWriteAndLog,
                     hasExtension, isInvalidFilename, ValidateDatasetNameAndSplit,
-                    ValidateDatasetNameSplitAndIndex)
+                    ValidateDatasetNameSplitAndIndex, ValidateDistributedTrainingOptions)
 
-# options of main.py that the port does not have yet (ROADMAP.md queue 1)
-_NOT_PORTED = ('distributed',)
+# options of main.py that the port does not have yet: none since --distributed
+_NOT_PORTED = ()
 _DISTRIBUTED_METAVAR = ('MASTER_ADDR', 'MASTER_PORT', 'NODES', 'DEVICES_PER_NODE', 'BACKEND',
                         'INIT_METHOD', 'NODE_ID')
 
@@ -65,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     train_parser = commands.add_parser('train', help="Train a stage of the DSRL model")
     train_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the model trains on (cuda or cpu)")
-    train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, help="Multi-process training topology (not ported yet)")
+    train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, const=settings.SUPPORTED_DISTRIBUTED_BACKENDS, action=ValidateDistributedTrainingOptions, help="Multi-process training: one process per device, NODES x DEVICES_PER_NODE ranks (gloo, nccl or mpi; xla maps to the device's default)")
     train_parser.add_argument('--mixed-precision', default=settings.DEFAULT_AMP_OPTIMIZATION_OPTION, type=str.upper, choices=[x for x in settings.AMP_OPTIMIZATION_OPTIONS if x], help="bf16 autocast with float32 parameters; apex opt-level strings (O0-O3) are accepted and mapped")
     train_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
     train_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
@@ -98,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     resume_train_parser = commands.add_parser('resume-train', help="Continue an interrupted run from its autosaved checkpoint")
     resume_train_parser.add_argument('--checkpoint', required=True, type=str, help="The .checkpoint file to continue training from (hyperparameters come from it)")
-    resume_train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, help="Multi-process training topology (not ported yet)")
+    resume_train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, const=settings.SUPPORTED_DISTRIBUTED_BACKENDS, action=ValidateDistributedTrainingOptions, help="Multi-process training: one process per device, NODES x DEVICES_PER_NODE ranks (gloo, nccl or mpi; xla maps to the device's default)")
     resume_train_parser.add_argument('--dataset', required=True, type=str.casefold, choices=settings.DATASETS.keys(), help="Registered dataset to train on")
 
     test_parser = commands.add_parser('test', help="Run inference and save colorized segmentation visualizations")
@@ -171,17 +181,27 @@ def _check_file(path, flag, extensions=_WEIGHTS_EXTENSIONS, noun='weights file')
         raise argparse.ArgumentTypeError("No such {}: '{}'.".format(noun, path))
 
 
-def _refuse_unported(args):
-    for name in _NOT_PORTED:
-        if getattr(args, name, None):
-            raise argparse.ArgumentTypeError("--{} is not ported yet (ROADMAP.md queue 1).".format(
-                name.replace('_', '-')))
+def _validate_distributed(distributed, device):
+    """``--distributed`` on ``device`` (the CLI's device name): the backend
+    must serve the device, and ``cuda`` needs a visible card for each of
+    the node's ranks (no two ranks share one)."""
+    from .parallel import distributed_init_kwargs
+    try:
+        distributed_init_kwargs(distributed, 0, device)
+    except ValueError as ex:
+        raise argparse.ArgumentTypeError(str(ex))
+    if device == 'cuda':
+        import torch
+        visible = torch.cuda.device_count()
+        if distributed['DEVICES_PER_NODE'] > visible:
+            raise argparse.ArgumentTypeError(
+                "DEVICES_PER_NODE={} needs as many CUDA cards, and torch sees {}.".format(
+                    distributed['DEVICES_PER_NODE'], visible))
 
 
 def _validate_train(args):
-    """Post-parse checks of ``train`` (parity: main.py:229-268), and the
-    options the port does not have yet.  May clear an earlier run of the
-    same stage after confirmation, as main.py does."""
+    """Post-parse checks of ``train`` (parity: main.py:229-268).  May clear
+    an earlier run of the same stage after confirmation, as main.py does."""
     if not args.num_workers >= 0:
         raise argparse.ArgumentTypeError("--num-workers must be >= 0.")
     if not args.val_interval > 0:
@@ -201,7 +221,8 @@ def _validate_train(args):
                        ('weights_decay', '--weights-decay'), ('poly_power', '--poly-power')):
         if not getattr(args, name) > 0.:
             raise argparse.ArgumentTypeError("{} must be > 0.".format(flag))
-    _refuse_unported(args)
+    if args.distributed:
+        _validate_distributed(args.distributed, args.device)
     if args.experiment_id:
         if isInvalidFilename(args.experiment_id):
             raise argparse.ArgumentTypeError("--experiment-id may not contain any of: {}.".format(
@@ -220,7 +241,6 @@ def _validate_train(args):
 
 def _validate_resume(args):
     """Post-parse checks of ``resume-train`` (parity: main.py:293-305)."""
-    _refuse_unported(args)
     if not hasExtension(args.checkpoint, '.checkpoint'):
         raise argparse.ArgumentTypeError("resume-train needs a full .checkpoint file (model + optimizer + engine state), not a .weights file.")
     if not os.path.isfile(args.checkpoint):
@@ -245,7 +265,8 @@ def _config_train_argv(filename):
                 value = settings.port_device(value)
             except ValueError as ex:
                 raise argparse.ArgumentTypeError(str(ex))
-        argv += ['--' + key, str(value)]
+        # A list (the 7 values of "distributed") gives one argument each.
+        argv += ['--' + key] + [str(v) for v in (value if isinstance(value, list) else [value])]
     return argv
 
 
@@ -296,19 +317,38 @@ def _purge_weights_logs(args):
                 shutil.rmtree(dir_)
 
 
+def _spawnable(fn):
+    """``fn`` as an attribute of this module imported by its package name:
+    run as ``python -m``, this file is ``__main__``, and a spawned process
+    cannot find the functions of a package's ``__main__`` under that name."""
+    return getattr(importlib.import_module(__spec__.name if __spec__ else __name__), fn.__name__)
+
+
 def _config_train_child(argv):
     """The ``train`` run of ``config-train``, in the spawned child."""
     main(argv)
 
 
+def _global_rank(kwargs):
+    """This process's rank in the process group (0 without one)."""
+    if not kwargs.get('distributed'):
+        return 0
+    from .parallel import distributed_init_kwargs
+    return distributed_init_kwargs(kwargs['distributed'], kwargs['local_rank'],
+                                   kwargs['device'])[0]['rank']
+
+
 def _train_or_resume(kwargs):
     """``train`` and ``resume-train`` with their output teed to the stage's
-    ``stdout.txt`` (parity: main.py:94-107)."""
+    ``stdout.txt`` (parity: main.py:94-107), by the master rank only."""
     from . import commands
+    master = _global_rank(kwargs) == 0
     logs_dir = os.path.join(kwargs['experiment_id'],
                             settings.LOGS_DIR.format(stage=kwargs['stage'], mode='train'))
-    os.makedirs(logs_dir, exist_ok=True)
-    with OverridePrintWithTQDMWriteAndLog(os.path.join(logs_dir, settings.STDOUT_FILE)) as stdout:
+    if master:
+        os.makedirs(logs_dir, exist_ok=True)
+    with OverridePrintWithTQDMWriteAndLog(os.path.join(logs_dir, settings.STDOUT_FILE),
+                                          master=master) as stdout:
         try:
             return commands.train_or_resume(
                 is_resuming_training=kwargs['command'] == 'resume-train', **kwargs)
@@ -329,10 +369,37 @@ def _run(kwargs):
         return getattr(commands, name.replace('-', '_'))(**kwargs)
 
 
+def _run_profiled(kwargs):
+    """``_run``, under ``torch.profiler`` with ``--profile`` (on the
+    master rank only)."""
+    if kwargs.get('dataset'):
+        # NAME (split 'train'), [NAME, SPLIT] or [NAME, SPLIT, START_INDEX]
+        # -> the registry entry (parity: main.py:58-70).
+        name, split, *start = ([kwargs['dataset'], 'train'] if isinstance(kwargs['dataset'], str)
+                               else kwargs['dataset'])
+        kwargs = dict(kwargs, dataset=dict(settings.DATASETS[name], name=name, split=split,
+                                           starting_index=start[0] if start else 0))
+    if not kwargs.get('profile') or _global_rank(kwargs) != 0:
+        return _run(kwargs)
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(settings.PROFILING_DIR, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = _run(kwargs)
+    prof.export_chrome_trace(os.path.join(settings.PROFILING_DIR, settings.PROFILING_FILE))
+    print(INFO("Profiling output has been saved to '{:s}'.".format(settings.PROFILING_DIR)))
+    return result
+
+
+def _rank_main(local_rank, kwargs):
+    """One spawned rank of ``--distributed`` training."""
+    _run_profiled(dict(kwargs, local_rank=local_rank))
+
+
 def main(argv=None):
     """Parses ``argv`` (default: ``sys.argv[1:]``) and runs the command;
-    returns what the command returns.  Invalid arguments exit with code 2;
-    ``config-train`` exits with its child's code."""
+    returns what the command returns (None for ``--distributed`` training,
+    whose ranks run in spawned processes).  Invalid arguments exit with
+    code 2; ``config-train`` exits with its child's code."""
     parser = build_parser()
     args = parser.parse_args(argv)
     try:
@@ -345,7 +412,7 @@ def main(argv=None):
         _purge_weights_logs(args)
         sys.exit(0)
     if args.command == 'config-train':
-        child = multiprocessing.get_context('spawn').Process(target=_config_train_child,
+        child = multiprocessing.get_context('spawn').Process(target=_spawnable(_config_train_child),
                                                              args=(args.train_argv,))
         try:
             child.start()
@@ -360,22 +427,18 @@ def main(argv=None):
         for variable in settings.VARIABLES_IN_CHECKPOINT:
             kwargs[variable] = checkpoint[variable]
         kwargs['device'] = settings.port_device(kwargs['device'])
-    if kwargs.get('dataset'):
-        # NAME (split 'train'), [NAME, SPLIT] or [NAME, SPLIT, START_INDEX]
-        # -> the registry entry (parity: main.py:58-70).
-        name, split, *start = ([kwargs['dataset'], 'train'] if isinstance(kwargs['dataset'], str)
-                               else kwargs['dataset'])
-        kwargs['dataset'] = dict(settings.DATASETS[name], name=name, split=split,
-                                 starting_index=start[0] if start else 0)
-    if not kwargs.get('profile'):
-        return _run(kwargs)
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(settings.PROFILING_DIR, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        result = _run(kwargs)
-    prof.export_chrome_trace(os.path.join(settings.PROFILING_DIR, settings.PROFILING_FILE))
-    print(INFO("Profiling output has been saved to '{:s}'.".format(settings.PROFILING_DIR)))
-    return result
+        if args.distributed:
+            try:
+                _validate_distributed(args.distributed, kwargs['device'])
+            except argparse.ArgumentTypeError as ex:
+                print(FATAL(str(ex)))
+                parser.print_usage()
+                sys.exit(2)
+    if kwargs.get('distributed'):
+        from .parallel import spawn_ranks
+        spawn_ranks(_spawnable(_rank_main), kwargs['distributed']['DEVICES_PER_NODE'], (kwargs,))
+        return None
+    return _run_profiled(kwargs)
 
 
 if __name__ == '__main__':

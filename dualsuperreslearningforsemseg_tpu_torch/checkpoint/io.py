@@ -16,6 +16,9 @@ Storage: a zip container holding ``data.json`` (structure + scalars) and one
 streamable.  ``load_checkpoint_or_weights`` auto-detects our format vs a
 torch zipfile and dispatches accordingly, so ``--init-weights`` accepts
 either (the reference loads both through ``t.load``).
+
+Under a process group only the master rank writes: ``save_checkpoint`` and
+``save_weights`` do nothing on the other ranks.
 """
 
 import io as _io
@@ -25,6 +28,8 @@ import os.path
 import zipfile
 
 import numpy as np
+
+from ..parallel import is_master_rank
 
 _MAGIC = 'dsrl_tpu_checkpoint_v1'
 _ARRAY_TOKEN = '__ndarray__'

@@ -16,8 +16,6 @@ import os
 import os.path
 from datetime import datetime
 
-import torch
-
 from .. import settings
 from ..data import make_eval_transform_fn, make_eval_loader
 from ..metrics import mIoU, Accuracy, AverageMeter
@@ -45,12 +43,11 @@ def benchmark(weights, dataset, device, num_workers, batch_size,
     eval_step = make_eval_step(ds_settings.NUM_CLASSES, ds_settings.IGNORE_CLASS_LABEL)
 
     pending = []
-    for imgs_u8, segs_u8 in loader:
+    for imgs_u8, segs_u8, valid in loader:
         n = imgs_u8.shape[0]
         (img_lo, img_hi), (seg_hi, _) = transform(imgs_u8.to(device, non_blocking=True),
                                                   segs_u8.to(device, non_blocking=True))
-        losses, _, hists, acc = eval_step(model, img_lo, img_hi, seg_hi,
-                                          torch.ones(n, device=device))
+        losses, _, hists, acc = eval_step(model, img_lo, img_hi, seg_hi, valid.to(device))
         pending.append((losses['CE'], hists, acc, n))
 
     CE_avg_loss = AverageMeter()

@@ -143,13 +143,18 @@ def warp_pair_batch(imgs_u8, segs_u8, mats, out_hw, lut=None):
     return img_w, seg_w
 
 
-def make_warp_transform(cfg: AugmentConfig, label_lut: np.ndarray, seed: int):
+def make_warp_transform(cfg: AugmentConfig, label_lut: np.ndarray, seed: int, rank: int = 0):
     """fn(epoch, batch_index, imgs_u8, segs_u8) -> warped (imgs, segs) on the
     inputs' device, with the matrices the JAX package's host warp draws for
-    the same (seed, epoch, batch_index) (its single-process stream,
-    data/augment.py:337-341)."""
+    the same (rank, seed, epoch, batch_index): from
+    ``SeedSequence([rank, seed, epoch, batch_index])``, and rank 0 (a single
+    process) from ``SeedSequence([seed, epoch, batch_index])``
+    (data/augment.py:329-341 there), so each rank warps its share of the
+    global batch with its own draws."""
+    rank_entropy = [rank] if rank else []
+
     def transform(epoch, batch_index, imgs_u8, segs_u8):
-        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, batch_index]))
+        rng = np.random.default_rng(np.random.SeedSequence(rank_entropy + [seed, epoch, batch_index]))
         mats = torch.from_numpy(sample_affine_matrices_np(
             rng, imgs_u8.shape[0], tuple(imgs_u8.shape[1:3]), cfg.output_hw, cfg))
         if imgs_u8.device.type == 'cuda':

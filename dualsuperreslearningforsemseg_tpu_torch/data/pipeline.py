@@ -5,6 +5,8 @@ processes, pinned uint8 batches.
 the reference's ``DistributedSampler(shuffle=True, seed, drop_last=True)``
 semantics, so each epoch visits the samples in the JAX package's order:
 batch ``b`` of epoch ``e`` holds ``indices_for_epoch(e)[b*B:(b+1)*B]``.
+With ``world_size`` ranks each rank takes every ``world_size``-th sample of
+that order from its ``rank`` on, as the JAX Loader does for ``(world, r)``.
 
 ``make_train_loader`` serves those batches through
 ``torch.utils.data.DataLoader``: spawned worker processes decode the PNG
@@ -101,13 +103,14 @@ def _collate(samples):
 
 
 def make_train_loader(dataset, batch_size: int, num_workers: int, device: torch.device,
-                      seed: int):
-    """Shuffled full batches in the JAX package's order for ``seed``; call
+                      seed: int, world_size: int = 1, rank: int = 0):
+    """Shuffled full batches of ``batch_size`` in the JAX package's order for
+    ``seed``, of rank ``rank``'s shard of ``world_size``; call
     ``loader.batch_sampler.set_epoch(epoch)`` before each epoch.  Worker
     processes are spawned, never forked: the parent may hold a CUDA
     context."""
-    batches = EpochBatches(ShardedSampler(len(dataset), shuffle=True, seed=seed, drop_last=True),
-                           batch_size)
+    batches = EpochBatches(ShardedSampler(len(dataset), world_size, rank, shuffle=True, seed=seed,
+                                          drop_last=True), batch_size)
     return torch.utils.data.DataLoader(
         _KeyedPairs(dataset), batch_sampler=batches, num_workers=num_workers,
         collate_fn=_collate, pin_memory=device.type == 'cuda',

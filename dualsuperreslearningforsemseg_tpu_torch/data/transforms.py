@@ -13,13 +13,19 @@ two source rows (columns) a and b of each output.
 
 ``make_eval_loader`` feeds it through ``torch.utils.data.DataLoader``:
 decode in worker processes, uint8 HWC batches in pinned memory, then one
-non-blocking copy to the device.
+non-blocking copy to the device.  With ``world_size`` ranks it serves rank
+``rank``'s shard of the in-order split, the JAX Loader's
+(``ShardedSampler(shuffle=False, drop_last=False)``, data/pipeline.py:26-67
+there): the split is padded cyclically to a multiple of the world size, so
+every rank has the same number of batches, and each pad entry comes with a
+valid mask of 0, so no sample is counted twice.
 """
 
 import numpy as np
 import torch
 
 from ..ops.resize import _linear_indices_weights
+from .pipeline import ShardedSampler
 
 
 def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
@@ -76,18 +82,37 @@ def make_eval_transform_fn(input_hw, output_hw, mean, std, label_lut: np.ndarray
     return transform
 
 
+class _MaskedSamples(torch.utils.data.Dataset):
+    """dataset[i] -> (image, label, 1.0), and for a pad entry ``-(i + 1)``
+    (pipeline.ShardedSampler) sample i's pair with 0.0."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        img, seg = self.dataset[i if i >= 0 else -(i + 1)]
+        return img, seg, float(i >= 0)
+
+
 def _collate(samples):
     imgs = torch.from_numpy(np.stack([s[0] for s in samples]))
     segs = torch.from_numpy(np.stack([s[1] for s in samples]))
-    return imgs, segs
+    return imgs, segs, torch.tensor([s[2] for s in samples], dtype=torch.float32)
 
 
-def make_eval_loader(dataset, batch_size: int, num_workers: int, device: torch.device):
-    """In-order batches of (images_u8 (B,H,W,3), segs_u8 (B,H,W)), the last
-    one ragged.  Worker processes are spawned, never forked: the parent
-    may already hold a CUDA context."""
+def make_eval_loader(dataset, batch_size: int, num_workers: int, device: torch.device,
+                     world_size: int = 1, rank: int = 0):
+    """In-order batches of (images_u8 (B,H,W,3), segs_u8 (B,H,W), valid (B,)
+    float32) from rank ``rank``'s shard of ``world_size``, the last one
+    ragged; ``valid`` is 0 for a pad entry.  Worker processes are spawned,
+    never forked: the parent may already hold a CUDA context."""
+    order = ShardedSampler(len(dataset), world_size, rank, shuffle=False,
+                           drop_last=False).indices_for_epoch(0)
+    batches = [[int(i) for i in order[b:b + batch_size]] for b in range(0, len(order), batch_size)]
     return torch.utils.data.DataLoader(
-        dataset, batch_size=batch_size, shuffle=False, drop_last=False,
-        num_workers=num_workers, collate_fn=_collate,
-        pin_memory=device.type == 'cuda',
+        _MaskedSamples(dataset), batch_sampler=batches, num_workers=num_workers,
+        collate_fn=_collate, pin_memory=device.type == 'cuda',
         multiprocessing_context='spawn' if num_workers > 0 else None)

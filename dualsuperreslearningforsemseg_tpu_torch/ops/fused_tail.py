@@ -91,13 +91,14 @@ def fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label: int = 255):
     return cross_entropy_sum(logits, labels, ignore_label)
 
 
-def _mean(ce_sum, count):
+def ce_mean(ce_sum, count):
+    """``where(count > 0, ce_sum / max(count, 1), 0)`` as float32."""
     return torch.where(count > 0, ce_sum / count.clamp(min=1), 0.0).float()
 
 
 def fused_convt2_ce_mean_plain(x, weight, bias, labels, ignore_label: int = 255):
     """The plain version of :func:`fused_convt2_ce_mean`."""
-    return _mean(*fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label))
+    return ce_mean(*fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label))
 
 
 def _check(x, weight, bias, labels, ignore_label):
@@ -229,6 +230,17 @@ class FusedConvT2CE(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+def fused_convt2_ce_sum(x, weight, bias, labels, ignore_label: int = 255):
+    """(CE sum float64, valid count int64) of :func:`fused_convt2_ce_mean`,
+    for a caller that reduces them across ranks first: CPU tensors take the
+    plain version, CUDA tensors :class:`FusedConvT2CE`."""
+    if x.device.type == 'cpu':
+        return fused_convt2_ce_sum_plain(x, weight, bias, labels, ignore_label)
+    if x.device.type != 'cuda':
+        raise ValueError("fused_convt2_ce_sum runs on CPU or CUDA tensors, got {}".format(x.device))
+    return FusedConvT2CE.apply(x, weight, bias, labels, ignore_label)
+
+
 def fused_convt2_ce_mean(x, weight, bias, labels, ignore_label: int = 255):
     """Mean CE of ``conv_transpose2d(x, weight, bias, stride=2)`` against
     ``labels`` without writing the logits, as a float32 scalar:
@@ -238,8 +250,4 @@ def fused_convt2_ce_mean(x, weight, bias, labels, ignore_label: int = 255):
     x (B, C, H, W) float32 or bfloat16, contiguous; weight (C, C, 2, 2) and
     bias (C,) float32; labels (B, 2H, 2W) uint8.  CPU tensors take the plain
     version; CUDA tensors launch the kernels or raise."""
-    if x.device.type == 'cpu':
-        return fused_convt2_ce_mean_plain(x, weight, bias, labels, ignore_label)
-    if x.device.type != 'cuda':
-        raise ValueError("fused_convt2_ce_mean runs on CPU or CUDA tensors, got {}".format(x.device))
-    return _mean(*FusedConvT2CE.apply(x, weight, bias, labels, ignore_label))
+    return ce_mean(*fused_convt2_ce_sum(x, weight, bias, labels, ignore_label))

@@ -18,6 +18,10 @@ import os.path
 import torch
 
 SUPPORTED_DEVICES = ['cpu', 'cuda']
+# --distributed BACKEND (reference settings.py:24): torch.distributed's
+# backends, and the JAX package's 'xla', which maps to the device's default
+# (parallel/mesh.py::distributed_init_kwargs).
+SUPPORTED_DISTRIBUTED_BACKENDS = ['gloo', 'mpi', 'nccl', 'xla']
 RANDOM_SEED = 54321                         # parity: reference settings.py:25
 
 # Mixed precision options: apex opt-levels accepted for CLI parity

@@ -24,6 +24,20 @@ images and (B, H, W) labels.  The loss is ``CE + w1 * MSE + w2 * FA``
 
 On the card the kernels run; on the CPU their plain versions.
 
+Under a process group of more than one rank (``train --distributed``) the
+train step is the JAX package's data-parallel step, which equals one
+device's step on the global batch (tests/test_sharded_equivalence.py
+there): every BatchNorm becomes the cross-rank one (models/norm.py), the
+model runs under ``DistributedDataParallel`` (parallel/mesh.py), which
+averages the gradients, and the CE is the global masked mean, ``psum`` of
+the sums over ``psum`` of the counts (steps.py:104-125 there): K1 gives the
+rank's (sum, count), the count is all-reduced, and the rank's loss term is
+``sum * world / global count``, whose gradient mean over the ranks is the
+global CE's.  The MSE and the FA are means over equal local batches and
+stay as they are.  The losses returned are the global values.  A single
+process runs the same arithmetic: the all-reduce does nothing, and the
+loss term is ``sum / count``.
+
 ``dry_run`` (``train --dry-run``, steps.py:74,145-150,434-440 there)
 replaces the network by random outputs of its real shapes, the logits
 classes-last at the output size, the SISR output at the target's and the
@@ -41,11 +55,13 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..losses import cross_entropy_loss, fa_loss, fa_loss_per_sample, mse_loss
 from ..metrics.device import argmax_lastdim, batch_accuracy_counts, batch_histograms
 from ..models.dsrl import SISR_UPSCALE, freeze_batch_norms
+from ..models.norm import convert_sync_batchnorm
 from ..ops.eval_tail import eval_tail
-from ..ops.fused_tail import fused_convt2_ce_mean
+from ..ops.fused_tail import ce_mean, fused_convt2_ce_sum
 
 
 def _sisr_target(img_hi, unshuffled: bool):
@@ -83,6 +99,18 @@ def _dry_outputs(seg, hi_shape, num_classes, generator=None):
             draw(b, 1, h // 8, w // 8))
 
 
+def _global_losses(ce_sum, count, mse, fa):
+    """The global CE, MSE, FA and Total from this rank's CE sum and count
+    and its MSE and FA means (one all-reduce), detached: the JAX data-
+    parallel step's replicated scalars."""
+    world = parallel.world_size()
+    tally = parallel.all_reduce_sum(torch.stack([v.detach().double().reshape(())
+                                                 for v in (ce_sum, count, mse, fa)]))
+    ce = ce_mean(tally[0], tally[1])
+    mse, fa = (tally[2] / world).float(), (tally[3] / world).float()
+    return {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}, tally[1]
+
+
 def _check_stage(model, stage):
     if getattr(model, 'stage', None) != stage:
         raise ValueError("the step is for stage {}, the model is stage {}".format(
@@ -103,7 +131,10 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
     mode under ``freeze_batch_norm``), ``model(x, pre_tail=True)``, the
     fused ConvT + CE (K1) on the final ConvT's own parameters, ``w1`` times
     the MSE (stage >= 2) and ``w2`` times the FA loss (stage 3), backward of
-    their sum, and one step of ``optimizer`` at learning rate ``lr``.
+    their sum, and one step of ``optimizer`` at learning rate ``lr``.  Under
+    a process group of more than one rank the model is converted and
+    wrapped once, here (the module docstring); ``DistributedDataParallel``
+    starts every rank from rank 0's state.
     ``amp_dtype`` (torch.bfloat16 for ``--mixed-precision``) runs the
     forward under autocast with float32 parameters; K1 then receives the
     bfloat16 activation, the MSE subtracts in bfloat16, and the FA loss
@@ -118,17 +149,25 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
         raise ValueError("img_hi can arrive unshuffled by {} only, got {}".format(
             SISR_UPSCALE, hi_unshuffled))
     tail = model.SSSR_decoder.upsample16_pred[6]
+    world = parallel.world_size()
+    net = model
+    if world > 1 and not dry_run:
+        convert_sync_batchnorm(model)
+        net = parallel.data_parallel(model, tail.weight.device)
 
     def network_losses(img_lo, img_hi, seg, unshuffled):
+        """-> (the losses, the tensor to differentiate)."""
         x = img_lo.permute(0, 3, 1, 2).contiguous()
         with _autocast(x.device.type, amp_dtype):
-            sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
-        ce = fused_convt2_ce_mean(sssr.contiguous(), tail.weight, tail.bias,
-                                  seg.to(torch.uint8).contiguous(), ignore_label)
-        zero = torch.zeros((), device=ce.device)
+            sssr, sisr, sssr_t, sisr_t = net(x, pre_tail=True)
+        args = (sssr.contiguous(), tail.weight, tail.bias, seg.to(torch.uint8).contiguous(),
+                ignore_label)
+        ce_sum, count = fused_convt2_ce_sum(*args)
+        zero = torch.zeros((), device=sssr.device)
         mse = w1 * mse_loss(sisr, _sisr_target(img_hi, unshuffled)) if stage > 1 else zero
         fa = w2 * fa_loss(sssr_t, sisr_t) if stage > 2 else zero
-        return {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
+        losses, global_count = _global_losses(ce_sum, count, mse, fa)
+        return losses, ce_mean(ce_sum * world, global_count) + mse + fa
 
     def dry_losses(img_hi, seg):
         sssr, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, tail.out_channels)
@@ -144,18 +183,18 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
             if debug_nans:
                 _raise_if_not_finite(losses)
             return losses
-        model.train()
+        net.train()
         if freeze_batch_norm:
             freeze_batch_norms(model)
         for group in optimizer.param_groups:
             group['lr'] = lr
         with (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
               else contextlib.nullcontext()):
-            losses = network_losses(img_lo, img_hi, seg, unshuffled)
+            losses, objective = network_losses(img_lo, img_hi, seg, unshuffled)
             if debug_nans:
                 _raise_if_not_finite(losses)
             optimizer.zero_grad(set_to_none=True)
-            losses['Total'].backward()
+            objective.backward()
         optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 

@@ -3,12 +3,13 @@ from .timers import timethis, makeSecondsPretty
 from .fsutil import (INVALID_FILENAME_CHARS, isInvalidFilename, hasExtension,
                      getFilesWithExtension, swapTupleValues)
 from .device import select_device, device_description
-from .validators import ValidateDatasetNameAndSplit, ValidateDatasetNameSplitAndIndex
+from .validators import (ValidateDatasetNameAndSplit, ValidateDatasetNameSplitAndIndex,
+                         ValidateDistributedTrainingOptions)
 
 __all__ = [
     'INFO', 'CAUTION', 'FATAL', 'OverridePrintWithTQDMWriteAndLog', 'ConditionalContextManager',
     'timethis', 'makeSecondsPretty',
     'INVALID_FILENAME_CHARS', 'isInvalidFilename', 'hasExtension', 'getFilesWithExtension', 'swapTupleValues',
     'select_device', 'device_description', 'ValidateDatasetNameAndSplit',
-    'ValidateDatasetNameSplitAndIndex',
+    'ValidateDatasetNameSplitAndIndex', 'ValidateDistributedTrainingOptions',
 ]

@@ -12,9 +12,12 @@ deterministic (tests/test_determinism.py there).
 import torch
 
 
-def select_device(device: str, cudnn_benchmark: bool = True) -> torch.device:
+def select_device(device: str, cudnn_benchmark: bool = True, local_rank=None) -> torch.device:
     """``'cpu'`` or ``'cuda'`` -> the torch device, with the precision
-    switches set; raises when ``'cuda'`` is asked for and there is no card."""
+    switches set; raises when ``'cuda'`` is asked for and there is no card.
+    With ``local_rank`` (a rank of multi-process training) the card is
+    ``cuda:local_rank``, made the current device before any CUDA work, so
+    the kernels launch on its current stream."""
     device = device.casefold()
     if device == 'cpu':
         return torch.device('cpu')
@@ -27,7 +30,13 @@ def select_device(device: str, cudnn_benchmark: bool = True) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = cudnn_benchmark
     torch.backends.cudnn.deterministic = True
-    return torch.device('cuda')
+    if local_rank is None:
+        return torch.device('cuda')
+    if not 0 <= local_rank < torch.cuda.device_count():
+        raise RuntimeError("local rank {} needs cuda:{}, and torch sees {} card(s).".format(
+            local_rank, local_rank, torch.cuda.device_count()))
+    torch.cuda.set_device(local_rank)
+    return torch.device('cuda', local_rank)
 
 
 def device_description(device: torch.device) -> str:

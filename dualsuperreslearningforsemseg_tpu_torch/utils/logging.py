@@ -43,11 +43,13 @@ class OverridePrintWithTQDMWriteAndLog:
 
     While active, ``sys.stdout`` is this instance, and every ``write`` /
     ``flush`` goes to the real stdout and to the log file.  ``print`` falls
-    back to the builtin when ``tqdm.write`` raises.
+    back to the builtin when ``tqdm.write`` raises.  With ``master=False``
+    (a rank of multi-process training other than rank 0) no log file is
+    opened: only the master keeps one.
     """
 
-    def __init__(self, log_filename=None):
-        self._log_filename = log_filename
+    def __init__(self, log_filename=None, master=True):
+        self._log_filename = log_filename if master else None
         self._sinks = (sys.stdout,)
         self._saved = None  # (sys.stdout, builtins.print) while active
 

@@ -86,7 +86,7 @@ def test_help_lists_every_command_of_main_py():
     jax_commands = set(re.findall(r"add_parser\('([a-z-]+)'", jax_parser_source)) | \
         {'purne-weights', 'prune-weights'}
     assert commands(build_parser()) == jax_commands
-    assert _NOT_PORTED == ('distributed',)
+    assert _NOT_PORTED == ()
 
 
 def test_test_dataset_option_is_validated(workdir):

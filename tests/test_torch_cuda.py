@@ -50,6 +50,9 @@ device.  Run on the GPU machine with
 * ``compile-model`` on the card at that size: the exported program's class
   map equals the eager model's except at pixels whose top-2 logits lie
   within 1e-4.
+* ``train --distributed ... 1 1 nccl ' ' 0`` (world 1) at that size: its
+  ``final.weights`` bitwise equal to the same ``train`` without
+  ``--distributed``, each in a fresh process.
 """
 
 import numpy as np
@@ -433,3 +436,39 @@ def test_compiled_model_matches_eager_on_the_card(cuda, tmp_path, monkeypatch):
             top2 = ref.topk(2, dim=1).values
             near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-4
             assert torch.all((ref.argmax(1) == got.argmax(1)) | near_tie)
+
+
+def test_world_one_nccl_train_is_bitwise_the_single_process_run(cuda, tmp_path):
+    """``train --distributed 127.0.0.1 <port> 1 1 nccl ' ' 0`` at the CPU
+    suite's small size and depth against the same ``train`` without
+    ``--distributed``, each in a fresh process: rank 0 keeps every
+    single-process stream and BatchNorm is not swapped at world 1, so the
+    two ``final.weights`` are bitwise equal; one set of master files."""
+    import os
+    import sys
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.data import make_synthetic_cityscapes_tree
+    import torch_distributed_ranks as ranks
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data_root = str(tmp_path / 'datasets' / 'Cityscapes' / 'data')
+    make_synthetic_cityscapes_tree(data_root, split='train', num_images=4, size_hw=(128, 256), seed=1)
+    make_synthetic_cityscapes_tree(data_root, split='val', num_images=3, size_hw=(128, 256), seed=2)
+    env = dict(os.environ, PYTHONPATH=repo, DSRL_TPU_MODEL_INPUT_SIZE='64x128',
+               DSRL_TPU_BACKBONE_LAYERS='1,1,2,1')
+    finals = []
+    for name, extra in (('plain', []), ('nccl', ['--distributed', '127.0.0.1', str(ranks.free_port()),
+                                                 '1', '1', 'nccl', ' ', '0'])):
+        code, _, err = ranks.run_command(
+            [sys.executable, '-m', 'dualsuperreslearningforsemseg_tpu_torch', 'train', '--stage', '1',
+             '--epochs', '1', '--batch-size', '2', '--num-workers', '0', '--dataset', 'cityscapes',
+             '--val-interval', '1', '--disable-cudnn-benchmark', '--experiment-id', name] + extra,
+            str(tmp_path), env)
+        assert code == 0, err[-3000:]
+        exp = tmp_path / 'experiments' / name
+        names = [f for _, _, fs in os.walk(exp) for f in fs]
+        assert [names.count(n) for n in ('final.weights', 'params.txt', 'stdout.txt')] == [1, 1, 1]
+        finals.append(load_checkpoint_or_weights(
+            str(exp / 'weights' / 'stage1' / 'final.weights'))['model_state_dict'])
+    assert set(finals[0]) == set(finals[1])
+    differ = [k for k in finals[0] if not np.array_equal(finals[0][k], finals[1][k])]
+    assert not differ, differ

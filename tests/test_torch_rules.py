@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that hold on any machine.
 
-* No module of the port, and no line of ``chip_smoke.py`` or
-  ``tail_variants.py``, imports JAX,
-  Flax or the JAX package (an AST scan of every import).
+* No module of the port (the process group, ``parallel/``, and the
+  cross-rank BatchNorm, ``models/norm.py``, among them), and no line of
+  ``chip_smoke.py`` or ``tail_variants.py``, imports JAX, Flax or the JAX
+  package (an AST scan of every import).
 * The entry points run on ``cuda`` unless asked for the CPU: without a card
   ``benchmark`` and ``train`` raise instead of falling back.
 * Every kernel wrapper module (K3, K1, K2, K4) has its plain version beside
@@ -42,6 +43,8 @@ def test_port_imports_nothing_of_jax():
                       recursive=True) + [os.path.join(REPO, f) for f in ('chip_smoke.py',
                                                                          'tail_variants.py')]
     assert len(files) > 20
+    for new in (os.path.join('parallel', 'mesh.py'), os.path.join('models', 'norm.py')):
+        assert os.path.join(REPO, 'dualsuperreslearningforsemseg_tpu_torch', new) in files, new
     bad = [(os.path.relpath(f, REPO), name) for f in files for name in _imported_modules(f)
            if name.split('.')[0] in FORBIDDEN]
     assert not bad, bad

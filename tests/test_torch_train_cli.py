@@ -12,9 +12,11 @@ package loads (``load_checkpoint_or_weights`` + ``load_state_dict(strict=
 True)``) with the same key set and shapes as its own stage-1 model; the
 losses it returns are finite.  With ``--mixed-precision O1`` the train
 step hands K1 and the validation step hands K3 a bfloat16 activation, as
-the JAX package trains and validates its bfloat16 model.  ``--distributed``,
-which the port does not have yet, exits from ``train`` and ``resume-train``
-with the "not ported yet" error naming the ROADMAP queue, before any work.
+the JAX package trains and validates its bfloat16 model.  ``--distributed``
+requests the device cannot serve exit with code 2 before any work: ``nccl``
+with ``--device cpu``, ``mpi`` where torch has no MPI, and more ranks per
+node than visible CUDA cards (tests/test_torch_distributed_cli.py runs the
+ones it can serve).
 """
 
 import math
@@ -70,7 +72,7 @@ def test_train_writes_weights_the_jax_package_loads(workdir):
 
 def test_mixed_precision_trains_and_validates_in_bf16(workdir, monkeypatch):
     seen = {'K1': [], 'K3': []}
-    k1, k3 = steps.fused_convt2_ce_mean, steps.eval_tail
+    k1, k3 = steps.fused_convt2_ce_sum, steps.eval_tail
 
     def spy_k1(x, *args):
         seen['K1'].append(x.dtype)
@@ -80,7 +82,7 @@ def test_mixed_precision_trains_and_validates_in_bf16(workdir, monkeypatch):
         seen['K3'].append(x.dtype)
         return k3(x, *args)
 
-    monkeypatch.setattr(steps, 'fused_convt2_ce_mean', spy_k1)
+    monkeypatch.setattr(steps, 'fused_convt2_ce_sum', spy_k1)
     monkeypatch.setattr(steps, 'eval_tail', spy_k3)
     res = main(ARGS + ['--stage', '1', '--mixed-precision', 'O1', '--experiment-id', 'bf16'])
     assert seen == {'K1': [torch.bfloat16] * 2, 'K3': [torch.bfloat16] * 2}
@@ -89,18 +91,26 @@ def test_mixed_precision_trains_and_validates_in_bf16(workdir, monkeypatch):
     assert load_checkpoint_or_weights(res['final_weights'])['mixed_precision'] == 'O1'
 
 
-DISTRIBUTED = ['--distributed', 'localhost', '29500', '1', '2', 'gloo', 'env://', '0']
+def _distributed(backend, per_node=1):
+    return ['--distributed', 'localhost', '29500', '1', str(per_node), backend, ' ', '0']
 
 
-@pytest.mark.parametrize('argv', [
-    ARGS + ['--stage', '2', '--experiment-id', 'refused'] + DISTRIBUTED,
-    ['resume-train', '--checkpoint', 'missing.checkpoint', '--dataset', 'cityscapes'] + DISTRIBUTED])
-def test_unported_requests_exit_with_an_error(workdir, capsys, argv):
+@pytest.mark.parametrize('argv, message', [
+    (ARGS + ['--stage', '1', '--experiment-id', 'refused'] + _distributed('nccl'),
+     "'nccl' needs CUDA devices"),
+    (ARGS + ['--stage', '1', '--experiment-id', 'refused'] + _distributed('mpi'),
+     "'mpi' is not available"),
+    ([a if a != 'cpu' else 'cuda' for a in ARGS] + ['--stage', '1', '--experiment-id', 'refused']
+     + _distributed('gloo', torch.cuda.device_count() + 1), 'needs as many CUDA cards'),
+], ids=['nccl-on-cpu', 'mpi-without-mpi', 'more-ranks-than-cards'])
+def test_distributed_requests_the_device_cannot_serve_exit_with_an_error(workdir, capsys,
+                                                                         monkeypatch, argv,
+                                                                         message):
+    monkeypatch.setattr(torch.distributed, 'is_mpi_available', lambda: False)
     with pytest.raises(SystemExit) as exc:
         main(argv)
     assert exc.value.code == 2
-    out = capsys.readouterr().out
-    assert 'not ported yet' in out and 'ROADMAP.md queue' in out
+    assert message in capsys.readouterr().out
     assert not os.path.exists('experiments')
 
 

@@ -77,7 +77,7 @@ def test_dry_run_skips_the_network_and_the_update(workdir, monkeypatch, stage):
             return fn(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(steps, 'fused_convt2_ce_mean', spy('K1', steps.fused_convt2_ce_mean))
+    monkeypatch.setattr(steps, 'fused_convt2_ce_sum', spy('K1', steps.fused_convt2_ce_sum))
     monkeypatch.setattr(steps, 'eval_tail', spy('K3', steps.eval_tail))
     monkeypatch.setattr(steps, 'fa_loss_per_sample', spy('K4', steps.fa_loss_per_sample))
     monkeypatch.setattr(fa_module, 'fa_allpairs_abs_mean', spy('K4', fa_module.fa_allpairs_abs_mean))
