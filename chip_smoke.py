@@ -155,7 +155,25 @@ nothing of JAX.  Phases, each fatal on failure:
    scaling number).  (b) ``train --stage 1 --epochs 1 --batch-size 8
    --disable-cudnn-benchmark --distributed 127.0.0.1 <port> 1 1 nccl ' ' 0``
    and the same without ``--distributed``, each a fresh process: one set
-   of master files each, ``final.weights`` bitwise equal.
+   of master files each, ``final.weights`` bitwise equal;
+15. the host input side: whether ``g++`` and libpng (``png.h``, ``-lpng
+   -lz``) are on this machine and, where they are, the native batched
+   decode built from ``native/dataplane.cpp`` (a failed build is fatal
+   then) and held bit for bit against PIL; 32 train + 16 val synthetic
+   1024x2048 frames (``noise=1``, ~2 MiB a PNG, written on a thread per
+   CPU); ms a pair of a PIL decode in one process, of the native decode of
+   8 pairs on the default loader worker's share of the CPUs and on all of
+   them (where it builds), and of a raw-cache read; then ``train --stage 1
+   --epochs 2 --batch-size 8 --val-interval 1 --disable-cudnn-benchmark``
+   twice, each a fresh process (``_input_train_child``): (a) without
+   ``DSRL_TPU_RAW_CACHE``, (b) with it on an empty directory, primed. Each
+   must launch K1 forward and backward and K2 once a step (8) and K3 once
+   a val batch (4), print no CAUTION of a failed native decode (nor of an
+   unavailable library where libpng is there), and (b) the priming INFO
+   line; the cache must end with one entry per frame (48) and the two
+   ``final.weights`` be bitwise equal.  Each run's epochs (wall seconds,
+   the step loop's wait on the loader before each step) and the pairs
+   the primer stored before step 1 are printed.
 
 Bounds (``bound``): the larger of the bytes a kernel must move over 3.35
 TB/s and its operations over the card's peak for their type: the 19x19
@@ -1923,6 +1941,183 @@ def distributed_phase(device_name, smi, weights3):
               ranks[1]['step_peak_gib'], time.time() - t_phase), flush=True)
 
 
+INPUT_TRAIN = ['train', '--stage', '1', '--epochs', '2', '--batch-size', '8', '--dataset',
+               'cityscapes', '--val-interval', '1', '--disable-cudnn-benchmark']
+INPUT_FAULTS = ('Native data plane unavailable', 'native batch decode failed')
+
+
+def _input_train_child(out_path, *argv):
+    """One ``train`` of phase 15 in a fresh process: the CLI's ``main`` with
+    every launch count at 0, then the summary, the counts and the native
+    decode's state of this process into ``out_path``."""
+    sys.path.insert(0, HERE)
+    from dualsuperreslearningforsemseg_tpu_torch.__main__ import main as cli_main
+    from dualsuperreslearningforsemseg_tpu_torch.data import native
+    fns = reset_counts()
+    summary = cli_main(list(argv))
+    out = {'summary': summary, 'counts': {name: fn.launches for name, fn in fns.items()},
+           'native': native.native_available(), 'native_calls': native.decode_pair_batch.calls}
+    with open(out_path, 'w') as f:
+        json.dump(out, f, default=float)
+
+
+def _ms_per_pair(fn, pairs, repeats=2):
+    """The best of ``repeats`` runs of ``fn()`` over ``pairs`` pairs, in ms a pair."""
+    best = float('inf')
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best / pairs
+
+
+def input_phase(device_name, smi):
+    """The host input side on the card's machine (phase 15): whether g++
+    and libpng are there, and then the native decode's build; PIL, native
+    (where it builds) and raw-cache read times a pair at 1024x2048; and
+    ``train --stage 1 --epochs 2`` without and with the raw pair cache
+    (primed), whose ``final.weights`` must be bitwise equal."""
+    import numpy as np
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import load_checkpoint_or_weights
+    from dualsuperreslearningforsemseg_tpu_torch.data import (
+        CityscapesDataset, RawPairCache, make_synthetic_cityscapes_tree, native)
+    t_phase = time.time()
+    work = os.path.join(HERE, 'build', 'chip_smoke', 'input')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.chdir(work)
+    # The native decode builds against libpng: where this machine lacks its
+    # header or library, the loaders decode with PIL (one CAUTION a
+    # process), and the phase times PIL against the raw-cache read.
+    cxx = shutil.which('g++')
+    has_libpng = False
+    if cxx:
+        with open('png_probe.cpp', 'w') as f:
+            f.write('#include <png.h>\nint main() { return png_access_version_number() ? 0 : 1; }\n')
+        probe = subprocess.run([cxx, 'png_probe.cpp', '-o', 'png_probe', '-lpng', '-lz'],
+                               capture_output=True, text=True, timeout=120)
+        has_libpng = probe.returncode == 0
+        version = subprocess.run([cxx, '--version'], capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()[0]
+        print("g++: {} | libpng (png.h, -lpng -lz): {}".format(version, 'found' if has_libpng else next(
+            (line for line in probe.stderr.splitlines() if 'error' in line), probe.stderr[-300:])),
+              flush=True)
+    if has_libpng:
+        t0 = time.time()
+        lib = native.get_lib()
+        if lib is None:
+            fail("the native decode library did not build or load (its CAUTION above says why)")
+        print("native decode library {} (dp_version {}) ready in {:.1f} s, built with {}".format(
+            os.path.relpath(lib._name, HERE), lib.dp_version(), time.time() - t0,
+            ' '.join(native.CXXFLAGS + native.LDFLAGS + native.library_path()[1])), flush=True)
+    else:
+        print("no g++ or libpng here: the native decode is not on this machine's path, the loaders "
+              "decode with PIL; timing PIL against the raw-cache read", flush=True)
+
+    t0 = time.time()
+    data_root = os.path.join('datasets', 'Cityscapes', 'data')
+    make_synthetic_cityscapes_tree(data_root, split='train', num_images=32, size_hw=(1024, 2048),
+                                   seed=15, noise=1)
+    make_synthetic_cityscapes_tree(data_root, split='val', num_images=16, size_hw=(1024, 2048),
+                                   seed=16, noise=1)
+    train = CityscapesDataset(data_root, split='train')
+    png_mb = np.mean([os.path.getsize(p) for pair in train.pairs for p in pair[:1]]) / 2 ** 20
+    print("set-up: 32 train + 16 val synthetic 1024x2048 frames (noise=1, {:.2f} MiB a frame "
+          "PNG) in {:.1f} s".format(png_mb, time.time() - t0), flush=True)
+
+    # Decode times a pair, on the 8 pairs of one batch (their PNGs in the
+    # page cache after the first repeat).
+    cpus = os.cpu_count()
+    share = max(1, cpus // settings.DEFAULT_NUM_WORKERS)
+    pairs = train.pairs[:8]
+    img_paths, seg_paths = [p[0] for p in pairs], [p[1] for p in pairs]
+    pil = [train[i] for i in range(8)]
+    imgs, segs = np.stack([p[0] for p in pil]), np.stack([p[1] for p in pil])
+    times = {'pil_one_process': _ms_per_pair(lambda: [train[i] for i in range(8)], 8)}
+    if has_libpng:
+        got = native.decode_pair_batch(img_paths, seg_paths, (1024, 2048), threads=share)
+        if not (np.array_equal(got[0], imgs) and np.array_equal(got[1], segs)):
+            fail("the native decode differs from PIL's")
+        for threads in sorted({share, cpus}):
+            times['native_batch8_threads{}'.format(threads)] = _ms_per_pair(
+                lambda: native.decode_pair_batch(img_paths, seg_paths, (1024, 2048),
+                                                 threads=threads), 8)
+    cache = RawPairCache(os.path.join(work, 'timing_cache'), (1024, 2048))
+    for k, (img_path, seg_path) in enumerate(pairs):
+        cache.store(img_path, seg_path, imgs[k], segs[k])
+    times['raw_cache_read'] = _ms_per_pair(lambda: [cache.load(*pair) for pair in pairs], 8)
+    shutil.rmtree(cache.dir)
+    print("decode ms a pair at 1024x2048 on {} ({}), os.cpu_count() {}, the default {} loader "
+          "workers' share {} thread(s): {}".format(device_name, smi, cpus,
+                                                  settings.DEFAULT_NUM_WORKERS, share,
+                                                  json.dumps(times)), flush=True)
+
+    # (a) without the cache, (b) with it on an empty directory, primed: each
+    # a fresh process with cuDNN's autotuner off, so both train alike.
+    steps, val_batches = 2 * 32 // 8, 2 * 16 // 8
+    want = {'fused_tail_forward': steps, 'fused_tail_backward': steps, 'augment_post': steps,
+            'eval_tail': val_batches, 'fa_pairwise_forward': 0, 'fa_pairwise_backward': 0}
+    cache_dir = os.path.join(work, 'raw_cache')
+    runs = {}
+    for name, env in (('input_plain', {}), ('input_cached', {'DSRL_TPU_RAW_CACHE': cache_dir})):
+        out_path = os.path.join(work, name + '.json')
+        env = dict({k: v for k, v in os.environ.items() if not k.startswith('DSRL_TPU_')},
+                   PYTHONPATH=HERE, **env)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, '-c', 'import sys, chip_smoke; chip_smoke._input_train_child(*sys.argv[1:])',
+             out_path] + INPUT_TRAIN + ['--experiment-id', name],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        with open(os.path.join(work, name + '.log'), 'w') as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            fail("train {}: exit {}\n{}".format(name, proc.returncode, proc.stderr[-4000:]))
+        faults = [line for line in (proc.stdout + proc.stderr).splitlines()
+                  if any(fault in line for fault in INPUT_FAULTS[0 if has_libpng else 1:])]
+        with open(out_path) as f:
+            run = json.load(f)
+        summary = run['summary']
+        epochs = [{'epoch': e['epoch'], 'seconds': e['seconds'],
+                   'input_wait_first_step_s': e['input_waits'][0],
+                   'input_wait_later_steps_mean_s': float(np.mean(e['input_waits'][1:])),
+                   'input_wait_per_step_mean_s': float(np.mean(e['input_waits']))}
+                  for e in summary['epochs']]
+        runs[name] = run
+        print("train {} on {} ({}): {:.2f} s in the process, {:.2f} s with its start-up; native "
+              "decode {}, {} native calls in the main process; primed before step 1: {}; epochs "
+              "{}; launches {}".format(
+                  name, device_name, smi, summary['seconds'], wall, run['native'],
+                  run['native_calls'], summary.get('primed_before_first_step'),
+                  json.dumps(epochs), json.dumps(run['counts'])), flush=True)
+        if faults or run['native'] != has_libpng:
+            fail("train {}: native decode {} where libpng is {}: {}".format(
+                name, run['native'], 'found' if has_libpng else 'missing', faults))
+        if run['counts'] != want or summary['steps'] != steps:
+            fail("train {} launched {} in {} steps (want {})".format(name, run['counts'],
+                                                                     summary['steps'], want))
+        primed = name == 'input_cached'
+        if ("Priming raw pair cache for the 'train' split" in proc.stdout) != primed:
+            fail("train {}: the priming INFO line is {}".format(
+                name, 'missing' if primed else 'printed'))
+    entries = sorted(os.listdir(cache_dir))
+    if len(entries) != 48 or not all(e.endswith('.raw') for e in entries) \
+            or (runs['input_cached']['native_calls'] > 0) != has_libpng:
+        fail("the raw cache holds {} files (want 48 entries), {} native calls in the primed "
+             "run".format(len(entries), runs['input_cached']['native_calls']))
+    finals = {name: load_checkpoint_or_weights(run['summary']['final_weights'])['model_state_dict']
+              for name, run in runs.items()}
+    differ = _same_arrays(finals['input_plain'], finals['input_cached'])
+    print("train with the raw cache vs without ({}): {} tensors, {} differ; the cache holds {} "
+          "entries, {:.1f} MiB; phase {:.1f} s".format(
+              device_name, len(finals['input_plain']), len(differ), len(entries),
+              sum(os.path.getsize(os.path.join(cache_dir, e)) for e in entries) / 2 ** 20,
+              time.time() - t_phase), flush=True)
+    if differ:
+        fail("final.weights with the raw cache differ from those without: {}".format(differ[:5]))
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -2041,6 +2236,7 @@ def main():
     state_phase(name, counts)
     commands_phase(name)
     distributed_phase(name, smi, weights3)
+    input_phase(name, smi)
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -31,7 +31,8 @@ process, the device mapped alike, and exits with the child's code.
 ``<experiment>/logs/stage{k}/train/stdout.txt``; the other commands print
 through the same ``tqdm``-safe override without a log file.  ``--profile``
 (``train``, ``test``) runs the command under ``torch.profiler`` and writes
-a Chrome trace into ``outputs/profile``.  ``compile-model`` writes a
+a Chrome trace into ``outputs/profile``: ``profiling.json``, or under
+``--distributed`` one ``profiling_rank{r}.json`` for each rank r.  ``compile-model`` writes a
 ``torch.export`` program (``.pt2``), not the JAX package's StableHLO, and
 takes ``--device`` (the JAX command exports for its environment's
 backend).  ``purge-weights-logs`` deletes ``weights/stage{k}`` and
@@ -45,7 +46,7 @@ the command on ``cuda:local_rank`` (or the CPU) in the process group of
 ``NODES * DEVICES_PER_NODE`` ranks (parallel/mesh.py), and exits non-zero
 when any rank fails.  A backend the device cannot serve, and more ranks per
 node than visible cards, exit with code 2 before any work.  Only rank 0
-tees ``stdout.txt`` and, with ``--profile``, writes the trace.
+tees ``stdout.txt``; with ``--profile`` every rank writes its trace.
 """
 
 import argparse
@@ -370,8 +371,10 @@ def _run(kwargs):
 
 
 def _run_profiled(kwargs):
-    """``_run``, under ``torch.profiler`` with ``--profile`` (on the
-    master rank only)."""
+    """``_run``, under ``torch.profiler`` with ``--profile``, on every rank
+    as the JAX CLI traces every process (main.py:364-366): one process
+    writes ``PROFILING_FILE``, rank r of ``--distributed`` training
+    ``PROFILING_RANK_FILE``, both under ``PROFILING_DIR``."""
     if kwargs.get('dataset'):
         # NAME (split 'train'), [NAME, SPLIT] or [NAME, SPLIT, START_INDEX]
         # -> the registry entry (parity: main.py:58-70).
@@ -379,14 +382,17 @@ def _run_profiled(kwargs):
                                else kwargs['dataset'])
         kwargs = dict(kwargs, dataset=dict(settings.DATASETS[name], name=name, split=split,
                                            starting_index=start[0] if start else 0))
-    if not kwargs.get('profile') or _global_rank(kwargs) != 0:
+    if not kwargs.get('profile'):
         return _run(kwargs)
     from torch.profiler import ProfilerActivity, profile
+    rank = _global_rank(kwargs)
     os.makedirs(settings.PROFILING_DIR, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         result = _run(kwargs)
-    prof.export_chrome_trace(os.path.join(settings.PROFILING_DIR, settings.PROFILING_FILE))
-    print(INFO("Profiling output has been saved to '{:s}'.".format(settings.PROFILING_DIR)))
+    prof.export_chrome_trace(os.path.join(settings.PROFILING_DIR, settings.PROFILING_RANK_FILE.format(
+        rank=rank) if kwargs.get('distributed') else settings.PROFILING_FILE))
+    if rank == 0:
+        print(INFO("Profiling output has been saved to '{:s}'.".format(settings.PROFILING_DIR)))
     return result
 
 

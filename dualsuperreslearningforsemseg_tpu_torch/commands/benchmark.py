@@ -3,7 +3,9 @@
 Parity with reference command_handlers/benchmark.py:16-95 and the JAX
 package's ``commands/benchmark.py``: stage-1 model, val/test transforms,
 metric accumulation, printed results and ``outputs/benchmark.txt``.  One
-process, one device.  Each batch runs the eval step (train/steps.py), whose
+process, one device.  The loader reads through the raw pair cache when
+``DSRL_TPU_RAW_CACHE`` is set, primed in the background unless
+``DSRL_TPU_PRIME_RAW_CACHE=0`` (data/pipeline.py).  Each batch runs the eval step (train/steps.py), whose
 tail is the fused eval-tail kernel on the card; the per-batch CE, histograms
 and counts stay on the device until the loop ends.
 
@@ -17,7 +19,7 @@ import os.path
 from datetime import datetime
 
 from .. import settings
-from ..data import make_eval_transform_fn, make_eval_loader
+from ..data import make_eval_transform_fn, make_eval_loader, prime_raw_cache
 from ..metrics import mIoU, Accuracy, AverageMeter
 from ..train import make_eval_step
 from ..utils import INFO, FATAL, select_device, device_description
@@ -29,17 +31,21 @@ def benchmark(weights, dataset, device, num_workers, batch_size,
     process_start_timestamp = datetime.now()
     device = select_device(device, cudnn_benchmark=not disable_cudnn_benchmark)
     ds_settings = dataset['settings']
-    model = load_model(weights, ds_settings.NUM_CLASSES, device)
 
     test_dataset = dataset['class'](dataset['path'], split=dataset.get('split', 'val'))
     if len(test_dataset) == 0:
         raise Exception(FATAL("Cityscapes dataset was not found under '{:s}'. "
                               "Please refer to 'README.md'.".format(dataset['path'])))
+    loader = make_eval_loader(test_dataset, batch_size, num_workers, device)
+    # The raw pair cache is filled while the model loads (JAX
+    # commands/benchmark.py:56-64).
+    primer = prime_raw_cache(loader) \
+        if os.environ.get('DSRL_TPU_PRIME_RAW_CACHE', '1') != '0' else None
+    model = load_model(weights, ds_settings.NUM_CLASSES, device)
 
     transform = make_eval_transform_fn(settings.MODEL_INPUT_SIZE, settings.MODEL_OUTPUT_SIZE,
                                        ds_settings.MEAN, ds_settings.STD,
                                        ds_settings.LABEL_MAPPING_LUT)
-    loader = make_eval_loader(test_dataset, batch_size, num_workers, device)
     eval_step = make_eval_step(ds_settings.NUM_CLASSES, ds_settings.IGNORE_CLASS_LABEL)
 
     pending = []
@@ -49,6 +55,8 @@ def benchmark(weights, dataset, device, num_workers, batch_size,
                                                   segs_u8.to(device, non_blocking=True))
         losses, _, hists, acc = eval_step(model, img_lo, img_hi, seg_hi, valid.to(device))
         pending.append((losses['CE'], hists, acc, n))
+    if primer is not None:
+        primer.join()
 
     CE_avg_loss = AverageMeter()
     miou = mIoU(num_classes=ds_settings.NUM_CLASSES)

@@ -19,6 +19,14 @@ rank of a process group (``--distributed``, below).
   that value plus one.  ``PolynomialLR`` starts at ``last_epoch =
   starting_epoch - 1``, so a resumed epoch has the uninterrupted run's
   learning rate.
+* Input: the loaders (data/pipeline.py, data/transforms.py) read each
+  batch through the raw pair cache when ``DSRL_TPU_RAW_CACHE`` names a
+  directory, and decode the rest with the native batched decode.  Unless
+  ``DSRL_TPU_PRIME_RAW_CACHE=0``, a background thread per split fills the
+  cache with the rank's shard of the first epoch read, and the val shard,
+  while the model is built (train_or_resume.py:237-254 there).  The summary
+  keeps each epoch's seconds and the loop's wait on the loader before each
+  step.
 * Each step: the loader's uint8 batch goes to the device, is warped there
   with the JAX package's matrices for (epoch, batch) (data/augment.py), and
   the train step (train/steps.py) runs K2 (at stages 2-3 emitting the
@@ -63,7 +71,9 @@ rank of a process group (``--distributed``, below).
 
 import glob
 import hashlib
+import os
 import os.path
+import time
 from datetime import datetime
 
 import numpy as np
@@ -72,7 +82,7 @@ import torch
 from .. import parallel, settings
 from ..checkpoint import load_checkpoint_or_weights, save_checkpoint, save_weights
 from ..data import (AugmentConfig, make_warp_transform, make_device_post_fn, make_train_loader,
-                    make_eval_transform_fn, make_eval_loader)
+                    make_eval_transform_fn, make_eval_loader, prime_raw_cache)
 from ..metrics import mIoU, Accuracy, AverageMeter
 from ..metrics.device import eval_batch_tally, eval_batch_results
 from ..models import DSRL, PolynomialLR, init_weights as init_model, load_pretrained_backbone, \
@@ -126,6 +136,29 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
     torch.manual_seed(_rank_seed(seed, rank))
     photometric_gen = torch.Generator(device=device).manual_seed(_rank_seed(seed + 1, rank))
 
+    train_set = dataset['class'](dataset['path'], split='train')
+    if not dry_run and len(train_set) == 0:
+        raise Exception(FATAL("Cityscapes dataset was not found under '{:s}'.".format(dataset['path'])))
+    if not dry_run and len(train_set) < batch_size * world:
+        raise Exception(FATAL("The train split has {} images, fewer than one batch of {} on each "
+                              "of {} rank(s).".format(len(train_set), batch_size, world)))
+    val_set = dataset['class'](dataset['path'], split='val')
+    train_loader = make_train_loader(train_set, batch_size, num_workers, device,
+                                     seed=settings.RANDOM_SEED, world_size=world, rank=rank)
+    val_loader = make_eval_loader(val_set, batch_size, num_workers, device, world, rank)
+    # With DSRL_TPU_RAW_CACHE set, decode this rank's shard of the first
+    # epoch the loop reads, and the val shard, into the raw cache while the
+    # model is built and the card warms up (JAX train_or_resume.py:243-254).
+    primers = []
+    if os.environ.get('DSRL_TPU_PRIME_RAW_CACHE', '1') != '0':
+        for loader, split, epoch in ((train_loader, 'train', starting_epoch + 1),
+                                     (val_loader, 'val', 0)):
+            primer = prime_raw_cache(loader, epoch)
+            if primer is not None:
+                primers.append(primer)
+                _print(INFO("Priming raw pair cache for the '{:s}' split in the background."
+                            .format(split)))
+
     model = init_model(DSRL(num_classes=ds.NUM_CLASSES, stage=stage),
                        torch.Generator().manual_seed(settings.RANDOM_SEED))
     if is_resuming_training:
@@ -141,14 +174,6 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
     scheduler = PolynomialLR(learning_rate, max_decay_steps=epochs, end_learning_rate=end_learning_rate,
                              power=poly_power, last_epoch=starting_epoch - 1)
 
-    train_set = dataset['class'](dataset['path'], split='train')
-    if not dry_run and len(train_set) == 0:
-        raise Exception(FATAL("Cityscapes dataset was not found under '{:s}'.".format(dataset['path'])))
-    if not dry_run and len(train_set) < batch_size * world:
-        raise Exception(FATAL("The train split has {} images, fewer than one batch of {} on each "
-                              "of {} rank(s).".format(len(train_set), batch_size, world)))
-    val_set = dataset['class'](dataset['path'], split='val')
-
     cfg = AugmentConfig(input_hw=settings.MODEL_INPUT_SIZE, output_hw=settings.MODEL_OUTPUT_SIZE,
                         mean=ds.MEAN, std=ds.STD, ignore_label=ds.IGNORE_CLASS_LABEL)
     warp = make_warp_transform(cfg, ds.LABEL_MAPPING_LUT, settings.RANDOM_SEED, rank=rank)
@@ -162,15 +187,12 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
                                amp_dtype=amp_dtype, dry_run=dry_run)
     eval_transform = make_eval_transform_fn(settings.MODEL_INPUT_SIZE, settings.MODEL_OUTPUT_SIZE,
                                             ds.MEAN, ds.STD, ds.LABEL_MAPPING_LUT)
-    train_loader = make_train_loader(train_set, batch_size, num_workers, device,
-                                     seed=settings.RANDOM_SEED, world_size=world, rank=rank)
-    val_loader = make_eval_loader(val_set, batch_size, num_workers, device, world, rank)
 
     train_logs_dir = os.path.join(experiment_id, settings.LOGS_DIR.format(stage=stage, mode='train'))
     val_logs_dir = os.path.join(experiment_id, settings.LOGS_DIR.format(stage=stage, mode='val'))
     checkpoints_dir = os.path.join(experiment_id, settings.CHECKPOINTS_DIR.format(stage=stage))
     summary = {'steps': 0, 'train_losses': [], 'val': None, 'warm_start': warm_start,
-               'starting_epoch': starting_epoch, 'checkpoints': []}
+               'starting_epoch': starting_epoch, 'checkpoints': [], 'epochs': []}
     # What a checkpoint holds besides the epoch and the state
     # (VARIABLES_IN_CHECKPOINT); the loss entries follow each epoch.
     record = dict(device=device_name, mixed_precision=mixed_precision, amp_state_dict=None,
@@ -249,14 +271,17 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
         _print(INFO("################################# Stage {:d} training STARTED #################################\n"
                    .format(stage), prefix='\n'))
 
-        epoch_seconds = []
+        def note_primed():
+            summary['primed_before_first_step'] = sum(p.stats['primed'] for p in primers)
+
         for epoch in range(starting_epoch + 1, epochs + 1):
             _print("\n=> EPOCH {0:d}/{1:d}".format(epoch, epochs))
             lr = scheduler.get_last_lr()[0]
             _print("Learning Rate: {:6f}".format(lr))
             epoch_start = datetime.now()
-            train_losses, steps = _train_epoch(train_step, train_loader, warp, device, epoch, lr,
-                                               photometric_gen, stage, debug_nans)
+            train_losses, steps, input_waits = _train_epoch(
+                train_step, train_loader, warp, device, epoch, lr, photometric_gen, stage,
+                debug_nans, note_primed if epoch == starting_epoch + 1 else None)
             summary['steps'] += steps
             summary['train_losses'].append(dict(zip(LOSS_NAMES, train_losses)))
             record.update(zip(TRAIN_LOSS_KEYS, train_losses))
@@ -304,9 +329,10 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
                     _print(CAUTION("Average training loss < Average validation loss!"))
 
             scheduler.step()
+            summary['epochs'].append({'epoch': epoch, 'input_waits': input_waits,
+                                      'seconds': (datetime.now() - epoch_start).total_seconds()})
             if epoch < epochs:
-                epoch_seconds.append((datetime.now() - epoch_start).total_seconds())
-                avg = np.mean(epoch_seconds[(-val_interval * 2):])
+                avg = np.mean([e['seconds'] for e in summary['epochs'][(-val_interval * 2):]])
                 _print(INFO("Est. training completion in {:s}.".format(
                     makeSecondsPretty(avg * (epochs - epoch)))))
 
@@ -327,6 +353,8 @@ def train_or_resume(is_resuming_training, device, mixed_precision, disable_cudnn
             makeSecondsPretty(elapsed), summary['final_weights'])))
         _print(INFO("################################# Stage {:d} training ENDED #################################"
                    .format(stage), prefix='\n'))
+    for primer in primers:
+        primer.join()
     # The master's writes above are the last thing the others wait for.
     parallel.barrier()
     parallel.destroy_process_group()
@@ -427,12 +455,22 @@ def _update_meters(pending, meters):
         meters[name].update(float(losses[name]), n)
 
 
-def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, debug_nans):
+def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, debug_nans,
+                 on_first_batch=None):
+    """One epoch of steps -> (the loss averages, the steps, the seconds the
+    loop waited on the loader before each step, the first wait including
+    the workers' start-up).  ``on_first_batch()`` runs when the first batch
+    is in hand."""
     meters = {name: AverageMeter() for name in LOSS_NAMES}
     loader.batch_sampler.set_epoch(epoch)
     pending = None   # (device losses, batch size), read one step late
     steps = 0
+    input_waits = []
+    wait_start = time.perf_counter()
     for imgs_u8, segs_u8, batch_epoch, batch_index in loader:
+        input_waits.append(time.perf_counter() - wait_start)
+        if on_first_batch is not None and steps == 0:
+            on_first_batch()
         imgs_w, segs_w = warp(batch_epoch, batch_index, imgs_u8.to(device, non_blocking=True),
                               segs_u8.to(device, non_blocking=True))
         try:
@@ -444,11 +482,12 @@ def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, 
             _update_meters(pending, meters)
         pending = (losses, imgs_u8.shape[0])
         steps += 1
+        wait_start = time.perf_counter()
     if pending is not None:
         _update_meters(pending, meters)
     averages = tuple(meters[name]() for name in LOSS_NAMES)
     _print(', '.join(_loss_log(averages, stage)))
-    return averages, steps
+    return averages, steps, input_waits
 
 
 def validate(model, eval_step, loader, transform, device, num_classes, on_batch=None):

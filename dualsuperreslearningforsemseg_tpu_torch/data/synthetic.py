@@ -10,6 +10,7 @@ climbs — not merely that the plumbing runs.
 
 import os
 import os.path
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 from PIL import Image
@@ -47,17 +48,29 @@ def make_synthetic_cityscapes_tree(root, split='train', num_images=4,
     learnability tests; throughput benchmarks pass ``noise=1`` so a full-res
     1024x2048 frame PNG-compresses to ~2.2 MB — the size of a real
     Cityscapes leftImg8bit frame — making decode cost representative
-    (amplitude ±10 is incompressible and inflates frames to ~4.1 MB)."""
+    (amplitude ±10 is incompressible and inflates frames to ~4.1 MB).
+
+    The pairs are drawn in order from ``seed`` and PNG-encoded on a thread
+    per CPU (PIL's encoder releases the GIL), so the files do not depend on
+    the thread count."""
     rng = np.random.default_rng(seed)
     h, w = size_hw
     img_dir = os.path.join(root, 'leftImg8bit', split, 'synthcity')
     seg_dir = os.path.join(root, 'gtFine', split, 'synthcity')
     os.makedirs(img_dir, exist_ok=True)
     os.makedirs(seg_dir, exist_ok=True)
-    for i in range(num_images):
+
+    def write(i, img, seg):
         base = 'synthcity_{:06d}_{:06d}'.format(i, i)
-        img, seg = _synthesize_pair(rng, h, w, noise=noise)
         Image.fromarray(img).save(os.path.join(img_dir, base + '_leftImg8bit.png'))
         Image.fromarray(seg).save(os.path.join(seg_dir, base + '_gtFine_labelIds.png'))
+
+    threads = os.cpu_count() or 1
+    with ThreadPoolExecutor(threads) as pool:
+        for start in range(0, num_images, threads):   # at most `threads` pairs held at once
+            jobs = [pool.submit(write, i, *_synthesize_pair(rng, h, w, noise=noise))
+                    for i in range(start, min(start + threads, num_images))]
+            for job in jobs:
+                job.result()
     return root
 

@@ -12,8 +12,9 @@ function, so that on the CPU the images are that package's bits (the
 two source rows (columns) a and b of each output.
 
 ``make_eval_loader`` feeds it through ``torch.utils.data.DataLoader``:
-decode in worker processes, uint8 HWC batches in pinned memory, then one
-non-blocking copy to the device.  With ``world_size`` ranks it serves rank
+each batch read in a worker process as the train loader reads it (the raw
+pair cache, the native batched decode or PIL: data/pipeline.py), uint8 HWC
+batches in pinned memory, then one non-blocking copy to the device.  With ``world_size`` ranks it serves rank
 ``rank``'s shard of the in-order split, the JAX Loader's
 (``ShardedSampler(shuffle=False, drop_last=False)``, data/pipeline.py:26-67
 there): the split is padded cyclically to a multiple of the world size, so
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import _linear_indices_weights
-from .pipeline import ShardedSampler
+from .pipeline import ShardedSampler, _Pairs
 
 
 def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
@@ -82,25 +83,18 @@ def make_eval_transform_fn(input_hw, output_hw, mean, std, label_lut: np.ndarray
     return transform
 
 
-class _MaskedSamples(torch.utils.data.Dataset):
-    """dataset[i] -> (image, label, 1.0), and for a pad entry ``-(i + 1)``
-    (pipeline.ShardedSampler) sample i's pair with 0.0."""
+class _MaskedSamples(_Pairs):
+    """A batch of indices -> (images, labels, valid), stacked; a pad entry
+    ``-(i + 1)`` (pipeline.ShardedSampler) reads sample i's pair with a
+    valid of 0."""
 
-    def __init__(self, dataset):
-        self.dataset = dataset
-
-    def __len__(self):
-        return len(self.dataset)
-
-    def __getitem__(self, i):
-        img, seg = self.dataset[i if i >= 0 else -(i + 1)]
-        return img, seg, float(i >= 0)
+    def __getitems__(self, indices):
+        imgs, segs = self.decode([i if i >= 0 else -(i + 1) for i in indices])
+        return imgs, segs, np.array([i >= 0 for i in indices], np.float32)
 
 
-def _collate(samples):
-    imgs = torch.from_numpy(np.stack([s[0] for s in samples]))
-    segs = torch.from_numpy(np.stack([s[1] for s in samples]))
-    return imgs, segs, torch.tensor([s[2] for s in samples], dtype=torch.float32)
+def _collate(batch):
+    return tuple(torch.from_numpy(a) for a in batch)
 
 
 def make_eval_loader(dataset, batch_size: int, num_workers: int, device: torch.device,
@@ -113,6 +107,6 @@ def make_eval_loader(dataset, batch_size: int, num_workers: int, device: torch.d
                            drop_last=False).indices_for_epoch(0)
     batches = [[int(i) for i in order[b:b + batch_size]] for b in range(0, len(order), batch_size)]
     return torch.utils.data.DataLoader(
-        _MaskedSamples(dataset), batch_sampler=batches, num_workers=num_workers,
+        _MaskedSamples(dataset, num_workers), batch_sampler=batches, num_workers=num_workers,
         collate_fn=_collate, pin_memory=device.type == 'cuda',
         multiprocessing_context='spawn' if num_workers > 0 else None)

@@ -55,6 +55,7 @@ PARAMS_FILE = 'params.txt'
 STDOUT_FILE = 'stdout.txt'
 OUTPUTS_DIR = 'outputs'
 PROFILING_FILE = 'profiling.json'
+PROFILING_RANK_FILE = 'profiling_rank{rank}.json'   # rank r of --distributed training
 PROFILING_DIR = os.path.join(OUTPUTS_DIR, 'profile')
 DATASETS_DIR = 'datasets'
 

@@ -10,6 +10,7 @@ within 1e-3 (the JAX figure is printed to 3 decimals).  ``test
 import importlib
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -32,8 +33,11 @@ def workdir(tmp_path_factory):
     save_weights(os.path.join(str(wd), 'weights'), 'stage1.weights', state_dict(variables), None)
     old = os.getcwd()
     os.chdir(str(wd))
-    yield str(wd)
-    os.chdir(old)
+    try:
+        yield str(wd)
+    finally:   # 0.1 GB of weights
+        os.chdir(old)
+        shutil.rmtree(str(wd), ignore_errors=True)
 
 
 def _results(text):

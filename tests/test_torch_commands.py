@@ -73,8 +73,11 @@ def workdir(tmp_path_factory):
                                           'momentum_buffers': {'a.weight': np.zeros(2)}})
     old = os.getcwd()
     os.chdir(str(wd))
-    yield str(wd)
-    os.chdir(old)
+    try:
+        yield str(wd)
+    finally:   # 0.4 GB of weights and checkpoints
+        os.chdir(old)
+        shutil.rmtree(str(wd), ignore_errors=True)
 
 
 def test_help_lists_every_command_of_main_py():

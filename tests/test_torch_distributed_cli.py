@@ -17,9 +17,13 @@ entry masked):
   pass sees the benchmark's batches of 2 (the last one a single frame), and
   both weight each batch's pixel-mean CE by its real frames;
 * ``resume-train --distributed`` from ``epoch1.checkpoint`` runs epoch 2 on
-  both ranks, whose digests agree, at the uninterrupted run's learning rate.
+  both ranks, whose digests agree, at the uninterrupted run's learning rate;
+* with ``--profile`` every rank writes its own Chrome trace,
+  ``outputs/profile/profiling_rank{0,1}.json``, and the master alone prints
+  where they went.
 """
 
+import json
 import os
 import re
 import shutil
@@ -53,17 +57,32 @@ def _files(root, name):
 
 @pytest.fixture
 def workdir(tmp_path, monkeypatch):
-    data_root = os.path.join(str(tmp_path), 'datasets', 'Cityscapes', 'data')
-    make_synthetic_cityscapes_tree(data_root, split='train', num_images=4, size_hw=(128, 256), seed=1)
-    make_synthetic_cityscapes_tree(data_root, split='val', num_images=5, size_hw=(128, 256), seed=2)
-    monkeypatch.chdir(tmp_path)
-    return str(tmp_path)
+    """The work tree, deleted when the test ends, passed or failed: its
+    checkpoints, weights and traces take ~0.7 GB."""
+    try:
+        data_root = os.path.join(str(tmp_path), 'datasets', 'Cityscapes', 'data')
+        make_synthetic_cityscapes_tree(data_root, split='train', num_images=4,
+                                       size_hw=(128, 256), seed=1)
+        make_synthetic_cityscapes_tree(data_root, split='val', num_images=5,
+                                       size_hw=(128, 256), seed=2)
+        monkeypatch.chdir(tmp_path)
+        yield str(tmp_path)
+    finally:
+        monkeypatch.undo()
+        shutil.rmtree(str(tmp_path), ignore_errors=True)
 
 
 def test_two_cpu_ranks_train_resume_and_validate_as_one_process(workdir):
     out = _cli(workdir, 'train', '--device', 'cpu', '--stage', '1', '--epochs', '2',
                '--batch-size', '1', '--num-workers', '0', '--dataset', 'cityscapes',
-               '--val-interval', '1', '--checkpoint-interval', '1', '--experiment-id', 'dist')
+               '--val-interval', '1', '--checkpoint-interval', '1', '--experiment-id', 'dist',
+               '--profile')
+    profile_dir = os.path.join('outputs', 'profile')
+    assert sorted(os.listdir(profile_dir)) == ['profiling_rank0.json', 'profiling_rank1.json']
+    for name in os.listdir(profile_dir):
+        with open(os.path.join(profile_dir, name)) as f:
+            assert json.load(f)['traceEvents'], name
+    assert out.count("Profiling output has been saved to '{}'.".format(profile_dir)) == 1
     stage = os.path.join('experiments', 'dist', 'weights', 'stage1')
     final = os.path.join(stage, 'final.weights')
     assert _files(workdir, 'final.weights') == [os.path.join(workdir, final)]
@@ -96,4 +115,3 @@ def test_two_cpu_ranks_train_resume_and_validate_as_one_process(workdir):
                    os.path.join(stage, 'checkpoints', 'epoch1.checkpoint'), '--dataset', 'cityscapes')
     assert '=> EPOCH 1/2' not in resumed
     assert re.findall(r'=> EPOCH (\d)/2\s+Learning Rate: ([0-9.]+)', resumed) == rates[1:]
-    shutil.rmtree('experiments')   # ~700 MB of checkpoints

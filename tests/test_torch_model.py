@@ -8,6 +8,8 @@ summed in another order).  A stage-3 ``.weights`` file written by the JAX
 package loads with ``strict=False``, the SISR and FA keys unexpected.
 """
 
+import shutil
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -77,10 +79,19 @@ def test_pre_tail_matches_jax(models):
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
-def test_stage3_weights_load_non_strict(tmp_path):
+@pytest.fixture
+def tmp(tmp_path):
+    """``tmp_path``, deleted when the test ends: the weights here are 0.1 GB."""
+    try:
+        yield tmp_path
+    finally:
+        shutil.rmtree(str(tmp_path), ignore_errors=True)
+
+
+def test_stage3_weights_load_non_strict(tmp):
     _, variables = _jax_variables(3, np.random.default_rng(12), seed=3)
-    save_weights(str(tmp_path), 'stage3.weights', state_dict(variables), None)
-    flat = load_checkpoint_or_weights(str(tmp_path / 'stage3.weights'))['model_state_dict']
+    save_weights(str(tmp), 'stage3.weights', state_dict(variables), None)
+    flat = load_checkpoint_or_weights(str(tmp / 'stage3.weights'))['model_state_dict']
     port = DSRL(num_classes=19, backbone_layers=LAYERS)
     missing, unexpected = load_state_dict(port, flat, strict=False)
     assert missing == []

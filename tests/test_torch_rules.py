@@ -9,12 +9,17 @@
 * Every kernel wrapper module (K3, K1, K2, K4) has its plain version beside
   the kernel, one ``launches`` counter per kernel, raised in one place only,
   and no ``try`` anywhere (so nothing falls back to the plain version).
+* The port's native decode library is its own build of
+  ``native/dataplane.cpp`` under ``build/native/``: no module of the port
+  names the JAX package's ``native/libdsrl_dataplane.so`` or runs ``make``,
+  and ``native/`` is as it was before the port began (``git diff``).
 """
 
 import ast
 import glob
 import importlib
 import os
+import subprocess
 
 import pytest
 import torch
@@ -23,6 +28,11 @@ from dualsuperreslearningforsemseg_tpu_torch.__main__ import main
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'dualsuperreslearningforsemseg_tpu')
+
+
+def _port_files():
+    return glob.glob(os.path.join(REPO, 'dualsuperreslearningforsemseg_tpu_torch', '**', '*.py'),
+                     recursive=True)
 
 
 def _imported_modules(path):
@@ -39,9 +49,7 @@ def _imported_modules(path):
 
 
 def test_port_imports_nothing_of_jax():
-    files = glob.glob(os.path.join(REPO, 'dualsuperreslearningforsemseg_tpu_torch', '**', '*.py'),
-                      recursive=True) + [os.path.join(REPO, f) for f in ('chip_smoke.py',
-                                                                         'tail_variants.py')]
+    files = _port_files() + [os.path.join(REPO, f) for f in ('chip_smoke.py', 'tail_variants.py')]
     assert len(files) > 20
     for new in (os.path.join('parallel', 'mesh.py'), os.path.join('models', 'norm.py')):
         assert os.path.join(REPO, 'dualsuperreslearningforsemseg_tpu_torch', new) in files, new
@@ -108,3 +116,31 @@ def test_fa_pairwise_sends_cpu_tensors_to_the_plain_version():
             fa_pairwise.fa_pairwise_backward.launches) == before
     assert torch.equal(out.detach(), fa_pairwise.fa_pairwise_forward_plain(a.detach(), b))
     assert torch.equal(a.grad, torch.sign(a.detach() - 1.0) * 4)
+
+
+def test_the_native_library_is_the_ports_own_build():
+    from dualsuperreslearningforsemseg_tpu_torch.data import native
+    assert native.SOURCE == os.path.join(REPO, 'native', 'dataplane.cpp')
+    assert native.BUILD_DIR == os.path.join(REPO, 'build', 'native')
+    assert os.path.dirname(native.library_path()[0]) == native.BUILD_DIR
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            source = f.read()
+        if 'libdsrl_dataplane' in source:
+            bad.append((os.path.relpath(path, REPO), 'libdsrl_dataplane'))
+        bad += [(os.path.relpath(path, REPO), node.value) for node in ast.walk(ast.parse(source))
+                if isinstance(node, ast.Constant) and node.value in ('make', 'gmake')]
+    assert not bad, bad
+
+
+def test_native_is_unchanged_since_the_port_began():
+    if not os.path.isdir(os.path.join(REPO, '.git')):
+        pytest.skip("not a git checkout")
+    first = subprocess.run(
+        ['git', 'log', '--diff-filter=A', '--format=%H', '--',
+         'dualsuperreslearningforsemseg_tpu_torch/__init__.py'],
+        cwd=REPO, capture_output=True, text=True, check=True).stdout.split()[-1]
+    diff = subprocess.run(['git', 'diff', '--stat', first + '^', '--', 'native'], cwd=REPO,
+                          capture_output=True, text=True, check=True).stdout
+    assert diff == '', diff

@@ -20,6 +20,7 @@ synthetic Cityscapes val split.
 
 import importlib
 import os
+import shutil
 import subprocess
 import sys
 
@@ -51,8 +52,11 @@ def workdir(tmp_path_factory):
     save_weights(os.path.join(str(wd), 'weights'), 'stage1.weights', state_dict(variables), None)
     old = os.getcwd()
     os.chdir(str(wd))
-    yield str(wd)
-    os.chdir(old)
+    try:
+        yield str(wd)
+    finally:   # 0.2 GB of weights and exported programs
+        os.chdir(old)
+        shutil.rmtree(str(wd), ignore_errors=True)
 
 
 def _png(path):

@@ -21,6 +21,7 @@ ones it can serve).
 
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -40,11 +41,19 @@ ARGS = ['train', '--device', 'cpu', '--epochs', '1', '--batch-size', '2', '--num
 
 @pytest.fixture
 def workdir(tmp_path, monkeypatch):
-    data_root = os.path.join(str(tmp_path), 'datasets', 'Cityscapes', 'data')
-    make_synthetic_cityscapes_tree(data_root, split='train', num_images=4, size_hw=(128, 256), seed=1)
-    make_synthetic_cityscapes_tree(data_root, split='val', num_images=3, size_hw=(128, 256), seed=2)
-    monkeypatch.chdir(tmp_path)
-    return str(tmp_path)
+    """The work tree, deleted with the weights written there (0.1 GB each)
+    when the test ends, passed or failed."""
+    try:
+        data_root = os.path.join(str(tmp_path), 'datasets', 'Cityscapes', 'data')
+        make_synthetic_cityscapes_tree(data_root, split='train', num_images=4,
+                                       size_hw=(128, 256), seed=1)
+        make_synthetic_cityscapes_tree(data_root, split='val', num_images=3,
+                                       size_hw=(128, 256), seed=2)
+        monkeypatch.chdir(tmp_path)
+        yield str(tmp_path)
+    finally:
+        monkeypatch.undo()
+        shutil.rmtree(str(tmp_path), ignore_errors=True)
 
 
 def test_train_writes_weights_the_jax_package_loads(workdir):
