@@ -13,7 +13,7 @@ nothing of JAX.  Phases, each fatal on failure:
    tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from wgmma)
    and asynchronous copies (``LDGSTS``) in each kernel function, beside its
    registers, shared memory and spills; the K1 forward kernel must have
-   tensor-core instructions;
+   tensor-core instructions and both K1 backward kernels ``HGMMA``;
 2. K3: the eval-tail kernel against its plain PyTorch version on the card
    at the benchmark's shape, x (16, 19, 256, 512), float32 with TF32 off and
    bfloat16: (a) inputs whose logits are exact in float32 (every product and
@@ -188,6 +188,7 @@ launches from the stage-3 run (phase 10); the last line is
 without a CUDA card or without the port beside this script.
 """
 
+import ctypes
 import json
 import os
 import shutil
@@ -2157,8 +2158,10 @@ def sass_counts(libs):
     """Counts of tensor-core (``HMMA``: mma.sync; ``HGMMA``: wgmma) and
     asynchronous-copy (``LDGSTS``) instructions in each kernel function's
     SASS (cuobjdump prints them function by function), with the function's
-    ``-Xptxas -v`` registers, shared memory and spills beside them.  Fails
-    if the K1 forward kernel has no tensor-core instruction."""
+    ``-Xptxas -v`` registers, shared memory and spills beside them (and
+    the K1 backward kernels' dynamic shared memory).  Fails
+    if the K1 forward kernel has no tensor-core instruction, or a K1
+    backward kernel (float32 and bfloat16 x) no ``HGMMA``."""
     cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
     tool = os.path.join(cuda_home, 'bin', 'cuobjdump')
     tool = tool if os.path.isfile(tool) else shutil.which('cuobjdump')
@@ -2189,6 +2192,15 @@ def sass_counts(libs):
             fwd = [n for fn, n in functions.items() if 'fused_tail_fwd_kernel' in fn]
             if not fwd or not all(n['HMMA'] + n['HGMMA'] for n in fwd):
                 fail("the K1 forward kernel has no tensor-core instruction: {}".format(fwd))
+            bwd = {fn: n for fn, n in functions.items() if 'fused_tail_bwd_kernel' in fn}
+            smem = ctypes.CDLL(path).dsrl_fused_tail_bwd_smem
+            for fn, n in sorted(bwd.items()):
+                print("K1 backward {}: {} HGMMA (wgmma: logits, dX, dW^T rows 0-63), {} HMMA (mma.sync: "
+                      "rows 64-79); ptxas: {}; {} bytes of dynamic shared memory a block".format(
+                          readable[fn], n['HGMMA'], n['HMMA'], ptxas.get(fn, 'not reported'),
+                          smem(1 if 'bfloat16' in fn else 0)), flush=True)
+            if len(bwd) != 2 or not all(n['HGMMA'] for n in bwd.values()):
+                fail("the K1 backward kernel has no HGMMA (wgmma) instruction: {}".format(bwd))
 
 
 def main():

@@ -15,9 +15,9 @@
 //              over pixels whose label is not `ignore`
 //   area_target[lab]: over labels < C
 //
-// Design: the skeleton of the train tail's backward (fused_tail.cu), from
-// tail_common.cuh.  A persistent grid (the SM count times the blocks the
-// occupancy allows per SM) walks tiles of 128 consecutive pre-tail pixels,
+// Design: the mma.sync tile skeleton of tail_common.cuh.  A persistent
+// grid (the SM count times the blocks the occupancy allows per SM) walks
+// tiles of 128 consecutive pre-tail pixels,
 // block i taking tiles i, i + grid, ...  Each of the 8 warps owns 16 pixels
 // of a tile and works on them alone, meeting the other warps only at the
 // end: it loads their (C, 16) activation slab with cp.async into one of its

@@ -43,27 +43,49 @@
 // For a bfloat16 x the dX and dW products take dlogits rounded to bfloat16
 // (fused_tail.py:173 there) and dX is rounded to bfloat16 at the end.
 //
-// Backward design: a persistent grid (the SM count times the blocks the
-// occupancy allows per SM) walks tiles of 128 consecutive pre-tail pixels,
-// block i taking tiles i, i + grid, ...  Each of the 8 warps owns 16 pixels
-// of a tile and works on them alone: it loads their (C, 16) activation slab
-// with cp.async into one of its two shared buffers while it computes on
-// the other, loads their labels and offsets into registers one tile ahead,
-// and runs on the tensor cores with mma.sync (3xTF32 for float32 x, one
-// bfloat16 pass for bfloat16 x; see tail_common.cuh) the logits (16 x 80)
-// = X^T . W, whose columns are ordered so that each lane holds whole output
-// pixels: each lane adds the bias, takes the softmax once (`exp_sum` keeps
-// exp(l - m)) and turns its logits into dlogits in its accumulators, and
-// writes them to the warp's shared tile, from which dX (16 x 24) = dlogits
-// . W^T (written to global memory in x's dtype) reads them back as pairs
-// (keeping them in registers through dX spilled).  The block meets twice a
-// tile, around dW^T (80 x 24) += dlogits^T .
-// X^T over all 128 pixels, whose accumulators stay in registers across the
-// block's tiles (15 m16n8 tiles, two per warp), and db, the float32 column
-// sums of the dlogits in three fixed pixel ranges.  At the end each block
-// writes its dW and db partial in float64 to its own slot and a one-block
-// pass adds the slots in a fixed order: no float atomics, so two launches
-// on the same inputs give bit-identical results.
+// Backward design, around the same warpgroup products as the forward.  A
+// persistent grid, one block an SM of 3 or 4 warpgroups (`BwdShape`),
+// walks the 64-pixel tiles as the forward does, each warp loading its 16
+// pixels' (C, 16) slab with cp.async two tiles ahead and their labels one
+// tile ahead; here the slab is kept in the tensor cores' K-major
+// core-matrix layout (`CoreSlab`), so that it is also the B operand of
+// dW^T, and lane (g, t) owns pixels 2g and 2g + 1 of its warp's 16 (rows g
+// and g + 8 of the m16 fragments), so that its two pixels lie side by side
+// in the slab, in the staged dlogits and in dX.  A float32 slab is split
+// once into TF32 hi (in place) and lo planes.  Per tile:
+//   * logits (64 x 80) = X^T . W: the forward's chain (`issue_logits_wgmma`,
+//     A from registers), then each lane turns its two output pixels'
+//     logits into dlogits in the accumulators (`to_dlogits`) and adds them
+//     to its float32 db sums (19 registers, one per class of its output
+//     position t), in a fixed order;
+//   * the dlogits, split into TF32 hi and lo (float32 x) or rounded to
+//     bfloat16, once: staged into the warpgroup's (80 x 64) K-major dW^T A
+//     operand (`DlStage`, one 8-byte or 4-byte store per pixel pair) and,
+//     in registers, the A fragments of dX;
+//   * dX (64 x 24) = dlogits . W^T: wgmma m64n24 (k8 TF32, 10 k steps x 3
+//     passes; k16 bfloat16, 5 k steps), A from registers (the k8 step nt
+//     takes columns nt*8 + 2t and + 1 as its columns t and t + 4, and W^T's
+//     table rows are ordered to match, `dx_table_col`), B W^T's table;
+//   * dW^T (80 x 24) += dlogits^T . X over the tile's 64 pixels, K =
+//     pixels.  M = 80 is not a multiple of 64: rows 0-63 are one wgmma
+//     m64n24 chain, A the staged dlogits and B the four warps' slabs, both
+//     from shared memory; rows 64-79 (classes 16-19) are finished by each
+//     warp over its own 16 pixels with mma.sync (`tail_rows_dw`: A from its
+//     part of the staging, B from its slab; 18 m16n8k8 TF32 or 3 m16n8k16
+//     bfloat16 products a warp a tile), after dX's wait, while the wgmma
+//     chain runs.  (A second m64 chain over rows
+//     16-79 instead read 2.8 KB of shared memory per k step for 16 useful
+//     rows: 0.300 against 0.282 ms float32, PERF.md.)  Both accumulator
+//     sets stay in registers across the warpgroup's tiles, the mma.sync
+//     ones a warp's partial sums added at the end;
+//   * dX is written in x's dtype (a pixel pair per store) while dW^T runs.
+// A warpgroup meets only itself, at two named barriers a tile (bar.sync id,
+// 128): its staged dlogits and slabs are in place before dW^T, and every
+// warp's products are done before the slabs and the staging are reused.
+// At the end each block adds its warpgroups' and warps' dW^T and db in a
+// fixed order into its float64 slot, and a one-block pass adds the slots in
+// a fixed order: no float atomics, so two launches on the same inputs give
+// bit-identical results.
 //
 // Layout: x is NCHW (float32 or bfloat16), contiguous, as the model gives
 // it; labels are (B, 2H, 2W) uint8, read as 2-byte pairs.  A tile may cross
@@ -96,32 +118,15 @@ namespace {
 using dsrl_tail::kC;
 using dsrl_tail::kN;
 using dsrl_tail::kNPad;
-using dsrl_tail::kThreads;
-using dsrl_tail::kTileP;
+using dsrl_tail::kNT;
 using dsrl_tail::kWarpP;
-using dsrl_tail::kWarps;
+using dsrl_tail::kWgM;
+using dsrl_tail::kWgSbo;
 using dsrl_tail::from_float;
-using dsrl_tail::to_float;
 constexpr int kRows = kC + 1;                   // dW's channels and db
 constexpr int kCols = kN;                       // (output position, class)
-constexpr int kSWT = 24;                        // dX's B table row stride (words)
-constexpr int kSL = 88;                         // dlogits row stride (floats): conflict-free loads
-constexpr int kWarpL = kWarpP * kSL;            // a warp's dlogits
 constexpr int kFinalThreads = 1024;
-constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;   // a warp's (C, 16) slab
-
-// Shared memory of the backward kernel, in bytes (each part a multiple of 16).
-template <typename T> struct BwdSmem {
-  static constexpr int kX = kWarps * 2 * kSlabElems * (int)sizeof(T);   // two slabs a warp
-  static constexpr int kL = kWarps * kWarpL * 4;              // each warp's dlogits
-  static constexpr int kW = dsrl_tail::b_table_words<T>(dsrl_tail::LogitsK<T>::kPad, dsrl_tail::kSW) * 4;
-  static constexpr int kWT = dsrl_tail::b_table_words<T>(kNPad, kSWT) * 4;   // W^T for dX
-  static constexpr int kB = 80;                               // bias per class (20 floats)
-  static constexpr int kLab = kWarps * 2 * kWarpP * 4;        // labels, two parts a warp
-  static constexpr int kOff = kWarps * 2 * kWarpP * 8;        // x offsets, two parts a warp
-  static constexpr int kDb = 3 * kNPad * 4;                   // db's column sums
-  static constexpr int kBytes = kX + kL + kW + kWT + kB + kLab + kOff + kDb;
-};
+constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;   // a warp's (C, 16) slab (the forward's)
 
 // The forward's block: one a SM, of as many warpgroups as the registers
 // allow (float32 x: 5 at 96 registers a thread; bfloat16 x, whose A
@@ -148,7 +153,7 @@ template <typename T> struct FwdSmem {
 // (adding 0.0 leaves the sum's bits as skipping would), so a lane's two
 // pixels interleave.
 template <int Half>
-__device__ __forceinline__ void add_ce(float (&acc)[dsrl_tail::kNT][4], const float* s_b, uint32_t labels4,
+__device__ __forceinline__ void add_ce(float (&acc)[kNT][4], const float* s_b, uint32_t labels4,
                                        int t, bool active, int ignore_label, double& ce, int& n_valid) {
   const int lab = (labels4 >> (8 * t)) & 0xff;
   const bool valid = active && lab != ignore_label;
@@ -185,8 +190,8 @@ __device__ __forceinline__ void block_partial(double ce, int n_valid, double* __
   }
 }
 
-// A warp's walk over its warpgroup's tiles (the forward).
-template <typename T> struct FwdWalk {
+// A warp's walk over its warpgroup's tiles (forward and backward).
+template <typename T> struct TailWalk {
   const T* x;
   const uint8_t* labels;
   T* s_x;                    // the warp's two slabs
@@ -196,17 +201,38 @@ template <typename T> struct FwdWalk {
   unsigned hw, stride;       // stride: pixels from one of the warpgroup's tiles to the next
   int width, ignore_label, lane, it;
   uint32_t labels4;          // lane l: the four labels of pixel p0 + l % 16 of this tile
+};
+
+template <typename T> struct FwdWalk : TailWalk<T> {
   double ce;
   int n_valid;
 };
 
 // Starts loading this warp's slab of the tile `ahead` tiles after w.tile.
-template <typename T>
-__device__ __forceinline__ void load_slab(const FwdWalk<T>& w, T* slab, unsigned ahead) {
+template <typename T, typename Layout = dsrl_tail::RowSlab<T>>
+__device__ __forceinline__ void load_slab(const TailWalk<T>& w, T* slab, unsigned ahead) {
   const long long p0 = w.p0 + (long long)ahead * w.stride;
   const dsrl_tail::PixelPos pos = dsrl_tail::advance(w.pos, ahead * w.stride, w.hw);
-  if (!dsrl_tail::load_x_part_whole<T>(slab, w.x, p0, pos, w.npix, w.hw, w.lane))
-    dsrl_tail::load_x_part<T>(slab, w.x, p0, pos, w.npix, w.hw, w.lane);
+  if (!dsrl_tail::load_x_part_whole<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane))
+    dsrl_tail::load_x_part<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane);
+}
+
+// The four labels of pixel p0 + lane % 16 of the walk's next tile.
+template <typename T>
+__device__ __forceinline__ uint32_t next_labels(const TailWalk<T>& w) {
+  const int pl = w.lane & (kWarpP - 1);
+  return dsrl_tail::pixel_info(w.labels, w.p0 + w.stride + pl, dsrl_tail::advance(w.pos, w.stride + pl, w.hw),
+                               w.npix, w.width, w.hw).labels4;
+}
+
+// Moves the walk to its next tile, whose labels are `labels_next`.
+template <typename T>
+__device__ __forceinline__ void advance_walk(TailWalk<T>& w, uint32_t labels_next) {
+  w.labels4 = labels_next;
+  w.tile += w.groups;
+  w.p0 += w.stride;
+  w.pos = dsrl_tail::advance(w.pos, w.stride, w.hw);
+  ++w.it;
 }
 
 // One step of the walk: the slab of tile `w.tile` has been requested two
@@ -217,7 +243,7 @@ __device__ __forceinline__ void load_slab(const FwdWalk<T>& w, T* slab, unsigned
 // no wgmma sits in a branch, so ptxas keeps them asynchronous.  Returns
 // whether a next tile exists.
 template <typename T>
-__device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, float (&acc)[dsrl_tail::kNT][4],
+__device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, float (&acc)[kNT][4],
                                          uint64_t desc) {
   const bool more = w.tile + w.groups < w.ntiles;
   T* slab = w.s_x + (w.it & 1) * kSlabElems;
@@ -231,10 +257,7 @@ __device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, fl
   dsrl_tail::wg_fence_acc(acc);
   if (w.tile + 2 * w.groups < w.ntiles) load_slab(w, slab, 2);
   dsrl_tail::cp_async_commit();
-  const int pl = w.lane & (kWarpP - 1);
-  const uint32_t labels_next =
-      dsrl_tail::pixel_info(w.labels, w.p0 + w.stride + pl, dsrl_tail::advance(w.pos, w.stride + pl, w.hw),
-                            w.npix, w.width, w.hw).labels4;
+  const uint32_t labels_next = next_labels(w);
   const int g = w.lane >> 2, t = w.lane & 3;
   const uint32_t lab0 = __shfl_sync(0xffffffffu, w.labels4, g);
   const uint32_t lab1 = __shfl_sync(0xffffffffu, w.labels4, g + 8);
@@ -242,11 +265,7 @@ __device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, fl
   dsrl_tail::wg_fence_acc(acc);
   add_ce<0>(acc, w.s_b, lab0, t, w.p0 + g < w.npix, w.ignore_label, w.ce, w.n_valid);
   add_ce<1>(acc, w.s_b, lab1, t, w.p0 + g + 8 < w.npix, w.ignore_label, w.ce, w.n_valid);
-  w.labels4 = labels_next;
-  w.tile += w.groups;
-  w.p0 += w.stride;
-  w.pos = dsrl_tail::advance(w.pos, w.stride, w.hw);
-  ++w.it;
+  advance_walk(w, labels_next);
   return more;
 }
 
@@ -273,9 +292,9 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   w.s_x = reinterpret_cast<T*>(smem + S::kW + S::kB) + warp * 2 * kSlabElems;
   w.s_b = s_b;
   w.hw = (unsigned)height * (unsigned)width;
-  w.ntiles = (npix + dsrl_tail::kWgM - 1) / dsrl_tail::kWgM;
+  w.ntiles = (npix + kWgM - 1) / kWgM;
   w.groups = (long long)gridDim.x * FwdShape<T>::kWG;
-  w.stride = (unsigned)w.groups * dsrl_tail::kWgM;
+  w.stride = (unsigned)w.groups * kWgM;
   w.tile = (long long)blockIdx.x * FwdShape<T>::kWG + warp / 4;
   w.npix = npix;
   w.width = width;
@@ -286,7 +305,7 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   w.n_valid = 0;
   if (w.tile < w.ntiles) {   // uniform over the warpgroup
     // The slabs of the first two tiles in flight, the first tile's labels.
-    w.p0 = w.tile * dsrl_tail::kWgM + (warp % 4) * kWarpP;
+    w.p0 = w.tile * kWgM + (warp % 4) * kWarpP;
     w.pos = dsrl_tail::pixel_pos(w.p0, w.hw);
     load_slab(w, w.s_x, 0);
     dsrl_tail::cp_async_commit();
@@ -298,7 +317,7 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
     // A's fragments and the accumulators live across the steps: as locals
     // of a step the float32 kernel spills (measured).
     dsrl_tail::WgA<T> a;
-    float acc[dsrl_tail::kNT][4];
+    float acc[kNT][4];
     const uint64_t desc = dsrl_tail::wg_desc(s_wb);
     while (fwd_step<T>(w, a, acc, desc)) {
     }
@@ -335,6 +354,208 @@ fwd_sum_kernel(const double* __restrict__ ce_partials, const long long* __restri
   }
 }
 
+// ---------------------------------------------------------------- backward
+
+// The backward's block: one an SM of 3 (float32 x) or 4 (bfloat16 x)
+// warpgroups.  A float32 block's shared memory (206 KB: each warpgroup's
+// staged dlogits, 41 KB, and its warps' slabs) leaves no room for a
+// fourth, nor do its registers (168 a thread while dX is in flight: the
+// dlogits' hi and lo fragments, both accumulator sets, the db sums); a
+// bfloat16 block of 4 fits in 128 registers without spills.  Fewer
+// warpgroups are slower (PERF.md).
+template <typename T> struct BwdShape {
+  static constexpr int kWG = sizeof(T) == 4 ? 3 : 4;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kWarps = 4 * kWG;
+};
+
+// A warp's (C, 16) slab in the tensor cores' K-major core-matrix layout,
+// the B operand of dW^T (N = channels, K = pixels): 8 channels x 16 bytes
+// of pixels make a 128-byte core matrix; K-adjacent ones kLbo = 128 bytes
+// apart, the three groups of 8 channels kSbo apart.  Channels 19-23 stay
+// zero.  (The pixel pairs of the logits' A fragments meet a 2-way bank
+// conflict in this layout: 6 (bfloat16: 6) loads a lane a tile.)
+template <typename T> struct CoreSlab {
+  static constexpr int kChunk = 16 / sizeof(T);             // pixels of a 16-byte row: 4 or 8
+  static constexpr int kLbo = 128;
+  static constexpr int kSbo = kWarpP / kChunk * kLbo;        // 512 or 256
+  static constexpr int kBytes = 3 * kSbo;
+  static constexpr int kElems = kBytes / (int)sizeof(T);
+  static __host__ __device__ constexpr int off(int ci, int p) {   // in elements
+    return ((ci / 8) * kSbo + (p / kChunk) * kLbo) / (int)sizeof(T) + (ci % 8) * kChunk + p % kChunk;
+  }
+};
+
+// A warpgroup's staged dlogits, the A operand of dW^T (M = 80 logits
+// columns, K = its 64 pixels), K-major: 8 columns x 16 bytes of pixels a
+// core matrix, M-adjacent ones kDlSbo = 128 bytes apart and K-adjacent
+// ones kDlLbo = 1296 bytes apart (10 x 128 and 16 more, so that the pixel
+// pairs of a warp's stores fall in distinct banks).  Float32 x: TF32 hi
+// and lo planes; bfloat16 x: one plane.
+constexpr int kDlLbo = 1296;
+constexpr int kDlSbo = 128;
+template <typename T> struct DlStage {
+  static constexpr int kChunk = 16 / sizeof(T);
+  static constexpr int kPlane = kWgM / kChunk * kDlLbo;      // 20736 or 10368
+  static constexpr int kBytes = (sizeof(T) == 4 ? 2 : 1) * kPlane;
+};
+
+// dX's B table, W^T (K = the 80 logits columns, N = 24 channels) in the
+// wgmma table layout of tail_common.cuh: 3 groups of 8 channels.
+constexpr int kDxGroups = 3;
+template <typename T> struct DxTable {
+  static constexpr int kSteps = sizeof(T) == 4 ? kNPad / 8 : kNPad / 16;   // 10 or 5
+  static constexpr int kStep = kDxGroups * kWgSbo;                         // 768 bytes
+  static constexpr int kPlane = kSteps * kStep;
+  static constexpr int kBytes = (sizeof(T) == 4 ? 2 : 1) * kPlane;
+};
+
+// Shared memory of the backward kernel, in bytes (each part a multiple of
+// 16): the logits' and dX's B tables, the bias, two slabs a warp (and a lo
+// plane a warp for float32 x), each warpgroup's staged dlogits.
+template <typename T> struct BwdSmem {
+  static constexpr int kW = dsrl_tail::WgTable<T>::kBytes;
+  static constexpr int kWT = DxTable<T>::kBytes;
+  static constexpr int kB = 80;
+  static constexpr int kX = BwdShape<T>::kWarps * 2 * CoreSlab<T>::kBytes;
+  static constexpr int kXLo = sizeof(T) == 4 ? BwdShape<T>::kWarps * CoreSlab<T>::kBytes : 0;
+  static constexpr int kL = BwdShape<T>::kWG * DlStage<T>::kBytes;
+  static constexpr int kBytes = kW + kWT + kB + kX + kXLo + kL;
+  // The end's reductions reuse the slabs and the staging: each warpgroup's
+  // dW^T rows 0-63 and each warp's rows 64-79 (24 columns, float32), then
+  // each warp's db sums (4 positions x C, float64).
+  static_assert((BwdShape<T>::kWG * kWgM + BwdShape<T>::kWarps * 16) * 24 * 4 +
+                        BwdShape<T>::kWarps * 4 * kC * 8 <= kX + kXLo + kL,
+                "the end's reductions must fit in the slabs and the staging");
+};
+
+// The logits column that row k of dX's B table stands for: for TF32, row
+// r < 4 of k8 step nt is column nt*8 + 2r, row r + 4 column nt*8 + 2r + 1
+// (the accumulator pairs a lane holds, `issue_dx_wgmma`); for bfloat16 row k.
+template <typename T>
+__device__ __forceinline__ int dx_table_col(int k) {
+  if constexpr (sizeof(T) == 4) {
+    const int r = k % 8;
+    return k - r + (r < 4 ? 2 * r : 2 * (r - 4) + 1);
+  } else {
+    return k;
+  }
+}
+
+__device__ __forceinline__ void named_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// d = a . B (scale_d 0) or d += a . B, m64n24k8 TF32 (A from registers;
+// B at desc_b).
+__device__ __forceinline__ void wgmma_n24_tf32(float (&d)[3][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The same, m64n24k16 bfloat16 (B K-major).
+__device__ __forceinline__ void wgmma_n24_bf16(float (&d)[3][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A . B, m64n24k8 TF32 (k16 bfloat16), A and B from shared memory,
+// both K-major.
+template <typename T>
+__device__ __forceinline__ void wgmma_n24_ss(float (&d)[3][4], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (sizeof(T) == 4) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, 1, 1, 1;\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+          "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+        : "l"(desc_a), "l"(desc_b));
+  } else {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, 1, 1, 1, 0, 0;\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+          "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+        : "l"(desc_a), "l"(desc_b));
+  }
+}
+
+// Splits a landed float32 slab into TF32 hi (in place) and lo planes, 16
+// bytes a lane at a time (8 consecutive lanes take 8 channels of one
+// pixel chunk: distinct banks).
+__device__ __forceinline__ void split_slab(float* hi, float* lo, int lane) {
+  for (int i = lane; i < kC * 4; i += 32) {
+    const int ci = i % kC, c = i / kC;
+    const int o = CoreSlab<float>::off(ci, 4 * c);
+    const float4 v = *reinterpret_cast<const float4*>(hi + o);
+    uint4 h, l;
+    dsrl_tail::split_tf32(v.x, h.x, l.x);
+    dsrl_tail::split_tf32(v.y, h.y, l.y);
+    dsrl_tail::split_tf32(v.z, h.z, l.z);
+    dsrl_tail::split_tf32(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// The logits' A fragments of a warp's part from its core-matrix slab: rows
+// g and g + 8 are pixels 2g and 2g + 1, side by side (one 8-byte or 4-byte
+// load), columns as `a_frag_tf32` / `a_frag_bf16`.  Float32 x: the TF32 hi
+// and lo planes; bfloat16 x: channel pairs packed with a byte permute
+// (channels 24-31 of the second k16 step are zero).
+template <typename T>
+__device__ __forceinline__ void load_bwd_a(const T* slab, const T* lo, int lane, dsrl_tail::WgA<T>& a) {
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int s = 0; s < dsrl_tail::WgTable<T>::kSteps; ++s) {
+      const int o0 = CoreSlab<T>::off(8 * s + t, 2 * g), o1 = CoreSlab<T>::off(8 * s + t + 4, 2 * g);
+      const uint2 h0 = *reinterpret_cast<const uint2*>(slab + o0);
+      const uint2 h1 = *reinterpret_cast<const uint2*>(slab + o1);
+      const uint2 l0 = *reinterpret_cast<const uint2*>(lo + o0);
+      const uint2 l1 = *reinterpret_cast<const uint2*>(lo + o1);
+      a.hi[s][0] = h0.x;
+      a.hi[s][1] = h0.y;
+      a.hi[s][2] = h1.x;
+      a.hi[s][3] = h1.y;
+      a.lo[s][0] = l0.x;
+      a.lo[s][1] = l0.y;
+      a.lo[s][2] = l1.x;
+      a.lo[s][3] = l1.y;
+    }
+  } else {
+    const auto pair = [&](int ci) {
+      return *reinterpret_cast<const uint32_t*>(slab + CoreSlab<T>::off(ci, 2 * g));
+    };
+#pragma unroll
+    for (int s = 0; s < dsrl_tail::WgTable<T>::kSteps; ++s) {
+      const int c0 = 16 * s + 2 * t;
+      const uint32_t u0 = pair(c0), u1 = pair(c0 + 1);
+      a.hi[s][0] = __byte_perm(u0, u1, 0x5410);   // pixel 2g: channels c0, c0 + 1
+      a.hi[s][1] = __byte_perm(u0, u1, 0x7632);   // pixel 2g + 1
+      if (s == 0) {
+        const uint32_t u2 = pair(c0 + 8), u3 = pair(c0 + 9);
+        a.hi[s][2] = __byte_perm(u2, u3, 0x5410);
+        a.hi[s][3] = __byte_perm(u2, u3, 0x7632);
+      } else {
+        a.hi[s][2] = a.hi[s][3] = 0u;
+      }
+    }
+  }
+}
+
 // Turns one output pixel's logits (with bias) into its dlogits, in place:
 // (softmax - onehot) * scale where the pixel is active and its label is not
 // ignored, else 0; the padding class 19 becomes 0 too.
@@ -348,256 +569,396 @@ __device__ __forceinline__ void to_dlogits(const Row& l, int lab, bool active, f
   l[kC] = 0.f;
 }
 
-// dX of a warp's 16 pixels: (16 x 24) = dlogits (16 x 80) . W^T (80 x 24),
-// the dlogits read back from the warp's shared tile `s_lw` (row p, column
-// n) as pairs: for bfloat16 columns 2t, 2t + 1 of a k16 step, the m16n8k16
-// layout; for TF32 the k8 step nt takes columns nt*8 + 2t and + 1 as its
-// columns t and t + 4, and the dX B table (`dx_table_col`) is ordered to
-// match.  Written in x's dtype for the real channels of the active pixels.
+// The dX operands of a lane's dlogits, which are in the accumulators
+// (column nt*8 + 2t + j of pixel 2g + h at acc[nt][2h + j]).  Float32 x:
+// each dlogit split into TF32 hi (in place, as float bits) and lo (`lo`,
+// same places); bfloat16 x: `pk`, the m64n24k16 A fragments of the
+// dlogits rounded to bfloat16 (k16 step s: columns 16s + 2t, + 1 and 16s +
+// 8 + 2t, + 1).  Each value is also stored into the warpgroup's staging,
+// the pixel pair (2g, 2g + 1) of a column side by side: dW^T's A operand.
 template <typename T>
-__device__ __forceinline__ void part_dx(const float* s_lw, const uint32_t* s_wtb, const long long* s_off,
-                                        T* __restrict__ dx, long long p0, long long npix, unsigned hw,
-                                        int lane) {
+__device__ __forceinline__ void stage_dlogits(float (&acc)[kNT][4], uint32_t (&lo)[sizeof(T) == 4 ? kNT : 1][4],
+                                              uint32_t (&pk)[kNPad / 16][4], unsigned char* stage, int w4,
+                                              int lane) {
   const int g = lane >> 2, t = lane & 3;
-  float acc[3][4] = {};
+  constexpr int kChunk = DlStage<T>::kChunk;
+  const int k = 16 * w4 + 2 * g;   // the pair's first pixel (K index)
+  unsigned char* base = stage + (k / kChunk) * kDlLbo + 32 * t + (k % kChunk) * (int)sizeof(T);
   if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int nt = 0; nt < dsrl_tail::kNT; ++nt) {
-      const float2 r0 = *reinterpret_cast<const float2*>(s_lw + g * kSL + nt * 8 + 2 * t);
-      const float2 r1 = *reinterpret_cast<const float2*>(s_lw + (g + 8) * kSL + nt * 8 + 2 * t);
-      uint32_t a_hi[4], a_lo[4];
-      dsrl_tail::split_tf32(r0.x, a_hi[0], a_lo[0]);
-      dsrl_tail::split_tf32(r1.x, a_hi[1], a_lo[1]);
-      dsrl_tail::split_tf32(r0.y, a_hi[2], a_lo[2]);
-      dsrl_tail::split_tf32(r1.y, a_hi[3], a_lo[3]);
-#pragma unroll
-      for (int ct = 0; ct < 3; ++ct) {
-        uint32_t b_hi[2], b_lo[2];
-        dsrl_tail::b_frag_tf32(s_wtb, kNPad, kSWT, nt * 8, ct * 8 + g, t, b_hi, b_lo);
-        dsrl_tail::mma_3xtf32(acc[ct], a_hi, a_lo, b_hi, b_lo);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < kNPad; k0 += 16) {
-      uint32_t a[4];   // dlogits rounded to bfloat16 (fused_tail.py:173)
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 v = *reinterpret_cast<const float2*>(s_lw + (g + 8 * (i & 1)) * kSL + k0 + 8 * (i >> 1) + 2 * t);
-        a[i] = dsrl_tail::pack_bf16(v.x, v.y);
+        uint32_t h;
+        dsrl_tail::split_tf32(acc[nt][i], h, lo[nt][i]);
+        acc[nt][i] = __uint_as_float(h);
       }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned char* p = base + nt * kDlSbo + 16 * j;
+        *reinterpret_cast<uint2*>(p) = make_uint2(__float_as_uint(acc[nt][j]), __float_as_uint(acc[nt][2 + j]));
+        *reinterpret_cast<uint2*>(p + DlStage<T>::kPlane) = make_uint2(lo[nt][j], lo[nt][2 + j]);
+      }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<uint32_t*>(base + nt * kDlSbo + 16 * j) =
+            dsrl_tail::pack_bf16(acc[nt][j], acc[nt][2 + j]);
+#pragma unroll
+    for (int s = 0; s < kNPad / 16; ++s) {
+      pk[s][0] = dsrl_tail::pack_bf16(acc[2 * s][0], acc[2 * s][1]);
+      pk[s][1] = dsrl_tail::pack_bf16(acc[2 * s][2], acc[2 * s][3]);
+      pk[s][2] = dsrl_tail::pack_bf16(acc[2 * s + 1][0], acc[2 * s + 1][1]);
+      pk[s][3] = dsrl_tail::pack_bf16(acc[2 * s + 1][2], acc[2 * s + 1][3]);
+    }
+  }
+}
+
+// Issues dX (64 x 24) = dlogits . W^T into dxa (three TF32 passes, small
+// terms first, for float32 x).  The k8 step nt's A fragment is the lane's
+// pairs (acc[nt][0], acc[nt][2]) as its column t and (acc[nt][1],
+// acc[nt][3]) as its column t + 4.
+template <typename T>
+__device__ __forceinline__ void issue_dx_wgmma(float (&dxa)[3][4], const float (&acc)[kNT][4],
+                                               const uint32_t (&lo)[sizeof(T) == 4 ? kNT : 1][4],
+                                               const uint32_t (&pk)[kNPad / 16][4], uint64_t desc) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const uint64_t hi_b = desc + (uint64_t)(nt * DxTable<T>::kStep >> 4);
+      const uint64_t lo_b = hi_b + (uint64_t)(DxTable<T>::kPlane >> 4);
+      const uint32_t hi_a[4] = {__float_as_uint(acc[nt][0]), __float_as_uint(acc[nt][2]),
+                                __float_as_uint(acc[nt][1]), __float_as_uint(acc[nt][3])};
+      const uint32_t lo_a[4] = {lo[nt][0], lo[nt][2], lo[nt][1], lo[nt][3]};
+      wgmma_n24_tf32(dxa, lo_a, hi_b, nt > 0);
+      wgmma_n24_tf32(dxa, hi_a, lo_b, 1);
+      wgmma_n24_tf32(dxa, hi_a, hi_b, 1);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kNPad / 16; ++s)
+      wgmma_n24_bf16(dxa, pk[s], desc + (uint64_t)(s * DxTable<T>::kStep >> 4), s > 0);
+  }
+}
+
+// Issues dW^T rows 0-63 += dlogits^T . X over the warpgroup's 64 pixels
+// into dw, a k step per 8 (TF32; three passes) or 16 (bfloat16) pixels.
+// stage: the descriptor of the staged dlogits; slab: of the warpgroup's
+// first warp's first slab; slab_lo: of its lo plane; buf: the slab buffer
+// of this tile.
+template <typename T>
+__device__ __forceinline__ void issue_dw_wgmma(float (&dw)[3][4], uint64_t stage, uint64_t slab,
+                                               uint64_t slab_lo, int buf) {
+  constexpr int kSteps = kWgM / (2 * DlStage<T>::kChunk);      // 8 or 4
+  constexpr int kPerWarp = kWarpP / (2 * DlStage<T>::kChunk);  // k steps in a warp's slab: 2 or 1
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int w = j / kPerWarp, jj = j % kPerWarp;
+    const uint64_t b_hi =
+        slab + (uint64_t)(((2 * w + buf) * CoreSlab<T>::kBytes + 2 * jj * CoreSlab<T>::kLbo) >> 4);
+    const uint64_t a_hi = stage + (uint64_t)((2 * j * kDlLbo) >> 4);
+    if constexpr (sizeof(T) == 4) {
+      const uint64_t a_lo = a_hi + (uint64_t)(DlStage<T>::kPlane >> 4);
+      const uint64_t b_lo = slab_lo + (uint64_t)((w * CoreSlab<T>::kBytes + 2 * jj * CoreSlab<T>::kLbo) >> 4);
+      wgmma_n24_ss<T>(dw, a_lo, b_hi);
+      wgmma_n24_ss<T>(dw, a_hi, b_lo);
+      wgmma_n24_ss<T>(dw, a_hi, b_hi);
+    } else {
+      wgmma_n24_ss<T>(dw, a_hi, b_hi);
+    }
+  }
+}
+
+// dW^T rows 64-79 (the logits columns of classes 16-19) += over the warp's
+// own 16 pixels, on mma.sync (m16n8k8 3xTF32, 2 k steps; m16n8k16
+// bfloat16, 1), into dwt[ct] (channels ct*8 to ct*8 + 7; rows g and g + 8
+// of lane (g, t) are columns 64 + g and 72 + g): A from the warp's part of
+// the staged dlogits, B from its slab (and lo plane), conflict-free.  The
+// warps' sums are added at the end.
+template <typename T>
+__device__ __forceinline__ void tail_rows_dw(float (&dwt)[3][4], const unsigned char* stage, const T* slab,
+                                             const T* slab_lo, int w4, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int kRow = kWgM / 8 * kDlSbo;     // byte of column 64 in a chunk
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const unsigned char* a = stage + (4 * w4 + 2 * s) * kDlLbo + kRow + 16 * g + 4 * t;
+      const auto ld = [&](int off) { return *reinterpret_cast<const uint32_t*>(a + off); };
+      constexpr int P = DlStage<T>::kPlane;
+      const uint32_t a_hi[4] = {ld(0), ld(kDlSbo), ld(kDlLbo), ld(kDlLbo + kDlSbo)};
+      const uint32_t a_lo[4] = {ld(P), ld(P + kDlSbo), ld(P + kDlLbo), ld(P + kDlLbo + kDlSbo)};
 #pragma unroll
       for (int ct = 0; ct < 3; ++ct) {
-        uint32_t b[2];
-        dsrl_tail::b_frag_bf16(s_wtb, kSWT, k0, ct * 8 + g, t, b);
-        dsrl_tail::mma_bf16(acc[ct], a, b);
+        const int o = CoreSlab<T>::off(ct * 8 + g, 8 * s + t), o4 = o + CoreSlab<T>::kLbo / 4;
+        const uint32_t b_hi[2] = {__float_as_uint(slab[o]), __float_as_uint(slab[o4])};
+        const uint32_t b_lo[2] = {__float_as_uint(slab_lo[o]), __float_as_uint(slab_lo[o4])};
+        dsrl_tail::mma_3xtf32(dwt[ct], a_hi, a_lo, b_hi, b_lo);
       }
     }
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int p = g + 8 * hr;
-    if (p0 + p < npix) {
-      T* dp = dx + s_off[p];
-#pragma unroll
-      for (int ct = 0; ct < 3; ++ct)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ci = ct * 8 + 2 * t + j;
-          if (ci < kC) dp[ci * (long long)hw] = from_float<T>(acc[ct][2 * hr + j]);
-        }
-    }
-  }
-}
-
-// The logits column (dlogits column of dX's A operand) that row k of dX's B
-// table stands for: for TF32, row r < 4 of k8 step nt is column nt*8 + 2r,
-// row r + 4 column nt*8 + 2r + 1 (see `part_dx`); for bfloat16 row k.
-template <typename T>
-__device__ __forceinline__ int dx_table_col(int k) {
-  if constexpr (sizeof(T) == 4) {
-    const int r = k % 8;
-    return k - r + (r < 4 ? 2 * r : 2 * (r - 4) + 1);
   } else {
-    return k;
+    const unsigned char* a = stage + 2 * w4 * kDlLbo + kRow + 16 * g + 4 * t;
+    const auto ld = [&](int off) { return *reinterpret_cast<const uint32_t*>(a + off); };
+    const uint32_t a_bf[4] = {ld(0), ld(kDlSbo), ld(kDlLbo), ld(kDlLbo + kDlSbo)};
+#pragma unroll
+    for (int ct = 0; ct < 3; ++ct) {
+      const T* b = slab + CoreSlab<T>::off(ct * 8 + g, 2 * t);
+      const uint32_t b_bf[2] = {*reinterpret_cast<const uint32_t*>(b),
+                                *reinterpret_cast<const uint32_t*>(b + CoreSlab<T>::kLbo / 2)};
+      dsrl_tail::mma_bf16(dwt[ct], a_bf, b_bf);
+    }
   }
 }
 
-// dW^T (80 x 24) += dlogits^T (80 x 128) . X^T (128 x 24) over the block's
-// tile for the m16n8 tile `id` of 15 (rows = logits columns, 5 x 16;
-// columns = channels, 3 x 8).  Pixel k of the tile is pixel k % 16 of warp
-// k / 16's part: its dlogits at s_l + (k / 16) * kWarpL, its slab at s_x +
-// (k / 16) * warp_slabs.
+// Stores a pixel pair's dX into channel plane position `d` (pixels 2g, 2g + 1).
+__device__ __forceinline__ void store_pair(float* d, float a, float b) {
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* d, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);   // .x = a at the lower address
+}
+
+// Writes dX of a lane's pixels 2g and 2g + 1 (accumulator rows g and g +
+// 8) for the real channels ct*8 + 2t + j: one pair store where the plane
+// size is even (the pair then lies in one sample, aligned), else one store
+// a pixel.
 template <typename T>
-__device__ __forceinline__ void tile_dw(const float* s_l, const T* s_x, int warp_slabs, int id, int lane,
-                                        float (&acc)[4]) {
-  constexpr int SX = dsrl_tail::kSlabStride;
-  const int g = lane >> 2, t = lane & 3;
-  const int m = (id / 3) * 16 + g;      // logits column
-  const int ci = (id % 3) * 8 + g;      // x channel
+__device__ __forceinline__ void store_dx(const TailWalk<T>& w, T* __restrict__ dx, const float (&dxa)[3][4]) {
+  const int g = w.lane >> 2, t = w.lane & 3;
+  const long long p = w.p0 + 2 * g;
+  if (p >= w.npix) return;
+  const dsrl_tail::PixelPos q0 = dsrl_tail::advance(w.pos, 2 * g, w.hw);
+  T* d0 = dx + q0.b * kC * (long long)w.hw + q0.rem;
+  if (w.hw % 2 == 0) {
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const float* lw = s_l + w * kWarpL;
-    const T* xw = s_x + w * warp_slabs;
-    if constexpr (sizeof(T) == 4) {
+    for (int ct = 0; ct < 3; ++ct)
 #pragma unroll
-      for (int k0 = 0; k0 < kWarpP; k0 += 8) {
-        uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
-        dsrl_tail::split_tf32(lw[(k0 + t) * kSL + m], a_hi[0], a_lo[0]);
-        dsrl_tail::split_tf32(lw[(k0 + t) * kSL + m + 8], a_hi[1], a_lo[1]);
-        dsrl_tail::split_tf32(lw[(k0 + t + 4) * kSL + m], a_hi[2], a_lo[2]);
-        dsrl_tail::split_tf32(lw[(k0 + t + 4) * kSL + m + 8], a_hi[3], a_lo[3]);
-        dsrl_tail::split_tf32(dsrl_tail::slab_at(xw, ci, k0 + t), b_hi[0], b_lo[0]);
-        dsrl_tail::split_tf32(dsrl_tail::slab_at(xw, ci, k0 + t + 4), b_hi[1], b_lo[1]);
-        dsrl_tail::mma_3xtf32(acc, a_hi, a_lo, b_hi, b_lo);
+      for (int j = 0; j < 2; ++j) {
+        const int ci = ct * 8 + 2 * t + j;
+        if (ci < kC) store_pair(d0 + ci * (long long)w.hw, dxa[ct][j], dxa[ct][2 + j]);
       }
-    } else {
-      const int r0 = 2 * t, r1 = r0 + 8;
-      uint32_t a[4], b[2];
-      a[0] = dsrl_tail::pack_bf16(lw[r0 * kSL + m], lw[(r0 + 1) * kSL + m]);
-      a[1] = dsrl_tail::pack_bf16(lw[r0 * kSL + m + 8], lw[(r0 + 1) * kSL + m + 8]);
-      a[2] = dsrl_tail::pack_bf16(lw[r1 * kSL + m], lw[(r1 + 1) * kSL + m]);
-      a[3] = dsrl_tail::pack_bf16(lw[r1 * kSL + m + 8], lw[(r1 + 1) * kSL + m + 8]);
-      b[0] = ci < kC ? *reinterpret_cast<const uint32_t*>(xw + ci * SX + r0) : 0u;
-      b[1] = ci < kC ? *reinterpret_cast<const uint32_t*>(xw + ci * SX + r1) : 0u;
-      dsrl_tail::mma_bf16(acc, a, b);
-    }
+  } else {
+    const dsrl_tail::PixelPos q1 = dsrl_tail::advance(q0, 1, w.hw);
+    T* d1 = dx + q1.b * kC * (long long)w.hw + q1.rem;
+    const bool second = p + 1 < w.npix;
+#pragma unroll
+    for (int ct = 0; ct < 3; ++ct)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ci = ct * 8 + 2 * t + j;
+        if (ci < kC) {
+          d0[ci * (long long)w.hw] = from_float<T>(dxa[ct][j]);
+          if (second) d1[ci * (long long)w.hw] = from_float<T>(dxa[ct][2 + j]);
+        }
+      }
   }
+}
+
+template <typename T> struct BwdWalk : TailWalk<T> {
+  T* s_xlo;                 // float32 x: the warp's lo plane
+  unsigned char* stage;     // the warpgroup's staged dlogits
+  float scale;
+  int w4, bar;              // the warp's index in its warpgroup; the warpgroup's named barrier
+  uint64_t desc_w, desc_wt, desc_stage, desc_slab, desc_lo;
+};
+
+// One backward step (see the design note at the top).  The slab of tile
+// `w.tile` has been requested two steps before; at the end the slab two
+// tiles ahead is requested into the buffer just used.  Returns whether a
+// next tile exists.
+template <typename T>
+__device__ __forceinline__ bool bwd_step(BwdWalk<T>& w, T* __restrict__ dx, dsrl_tail::WgA<T>& a,
+                                         float (&acc)[kNT][4], uint32_t (&lo)[sizeof(T) == 4 ? kNT : 1][4],
+                                         uint32_t (&pk)[kNPad / 16][4], float (&dxa)[3][4],
+                                         float (&dw)[2][3][4], float (&db)[kC]) {
+  const bool more = w.tile + w.groups < w.ntiles;
+  const int buf = w.it & 1;
+  T* slab = w.s_x + buf * CoreSlab<T>::kElems;
+  dsrl_tail::cp_async_wait<1>();
+  __syncwarp();      // this tile's slab has landed
+  if constexpr (sizeof(T) == 4) {
+    split_slab(slab, w.s_xlo, w.lane);
+    __syncwarp();
+  }
+  load_bwd_a<T>(slab, w.s_xlo, w.lane, a);
+  dsrl_tail::wg_fence();
+  dsrl_tail::issue_logits_wgmma<T>(acc, a, w.desc_w);
+  dsrl_tail::wg_commit();
+  dsrl_tail::wg_fence_acc(acc);
+  const uint32_t labels_next = next_labels(w);
+  const int g = w.lane >> 2, t = w.lane & 3;
+  const uint32_t lab0 = __shfl_sync(0xffffffffu, w.labels4, 2 * g);
+  const uint32_t lab1 = __shfl_sync(0xffffffffu, w.labels4, 2 * g + 1);
+  dsrl_tail::wg_wait<0>();
+  dsrl_tail::wg_fence_acc(acc);
+  // Lane (g, t) owns output position t of pixels 2g and 2g + 1.
+  to_dlogits(dsrl_tail::lane_logits<0>(acc, w.s_b), (lab0 >> (8 * t)) & 0xff, w.p0 + 2 * g < w.npix, w.scale,
+             w.ignore_label);
+  to_dlogits(dsrl_tail::lane_logits<1>(acc, w.s_b), (lab1 >> (8 * t)) & 0xff, w.p0 + 2 * g + 1 < w.npix,
+             w.scale, w.ignore_label);
+#pragma unroll
+  for (int co = 0; co < kC; ++co) db[co] += acc[co / 2][co % 2] + acc[co / 2][2 + co % 2];
+  stage_dlogits<T>(acc, lo, pk, w.stage, w.w4, w.lane);
+  dsrl_tail::wg_fence_proxy();
+  named_barrier(w.bar);   // the warpgroup's staged dlogits and slabs are in place
+  dsrl_tail::wg_fence();
+  issue_dx_wgmma<T>(dxa, acc, lo, pk, w.desc_wt);
+  dsrl_tail::wg_commit();
+  issue_dw_wgmma<T>(dw[0], w.desc_stage, w.desc_slab, w.desc_lo, buf);
+  dsrl_tail::wg_commit();
+  dsrl_tail::wg_fence_acc(dxa);
+  dsrl_tail::wg_fence_acc(dw[0]);
+  dsrl_tail::wg_wait<1>();
+  dsrl_tail::wg_fence_acc(dxa);
+  store_dx<T>(w, dx, dxa);
+  tail_rows_dw<T>(dw[1], w.stage, slab, w.s_xlo, w.w4, w.lane);
+  dsrl_tail::wg_wait<0>();
+  dsrl_tail::wg_fence_acc(dw[0]);
+  named_barrier(w.bar);   // every warp's products are done with the slabs and the staging
+  if (w.tile + 2 * w.groups < w.ntiles) load_slab<T, CoreSlab<T>>(w, slab, 2);
+  dsrl_tail::cp_async_commit();
+  advance_walk(w, labels_next);
+  return more;
 }
 
 // partials: [gridDim.x][kRows][kCols] float64, row r < C = channel r of dW
 // at column pos*C + co; row C = db at the same columns.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(BwdShape<T>::kThreads, 1)
 fused_tail_bwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
                       const float* __restrict__ bias, const uint8_t* __restrict__ labels,
                       const float* __restrict__ scale_ptr, T* __restrict__ dx,
                       double* __restrict__ partials, int height, int width, long long npix,
                       int ignore_label) {
   using S = BwdSmem<T>;
+  constexpr int kWG = BwdShape<T>::kWG;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  T* s_xall = reinterpret_cast<T*>(smem);                                // [warp][2][C][24]
-  float* s_lall = reinterpret_cast<float*>(smem + S::kX);               // [warp][16][kSL]
-  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL);    // logits' B table
-  uint32_t* s_wtb = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL + S::kW);   // dX's B table
-  float* s_b = reinterpret_cast<float*>(smem + S::kX + S::kL + S::kW + S::kWT);
-  // This warp's slabs, dlogits, labels and x offsets.
-  T* s_x = s_xall + warp * 2 * kSlabElems;
-  float* s_l = s_lall + warp * kWarpL;
-  uint32_t* s_lab = reinterpret_cast<uint32_t*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB) +
-                    warp * 2 * kWarpP;
-  long long* s_off = reinterpret_cast<long long*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB +
-                                                  S::kLab) + warp * 2 * kWarpP;
-  float* s_db = reinterpret_cast<float*>(smem + S::kX + S::kL + S::kW + S::kWT + S::kB + S::kLab +
-                                         S::kOff);   // [kDbParts * 80]
+  const int lane = threadIdx.x & 31;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);   // uniform over the warp
+  const int wg = warp / 4, w4 = warp % 4;
+  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s_wtb = reinterpret_cast<uint32_t*>(smem + S::kW);
+  float* s_b = reinterpret_cast<float*>(smem + S::kW + S::kWT);
+  unsigned char* s_xall = smem + S::kW + S::kWT + S::kB;   // [warp][2] slabs, then [warp] lo planes
+  unsigned char* s_stage = s_xall + S::kX + S::kXLo;       // [warpgroup] staged dlogits
 
-  const float scale = *scale_ptr;
-  const unsigned hw = (unsigned)height * (unsigned)width;
-  const long long ntiles = (npix + kTileP - 1) / kTileP;
-  const unsigned stride = gridDim.x * kTileP;   // pixels from one of the block's tiles to the next
-
-  dsrl_tail::load_tile_weights<T>(s_wb, s_b, weight, bias);
-  dsrl_tail::fill_b_table<T>(s_wtb, kNPad, kSWT, [&](int k, int ci) {
+  // Zero the slabs (channels 19-23 stay zero: no load writes them); build
+  // both B tables.
+  for (int i = threadIdx.x; i < (S::kX + S::kXLo) / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(s_xall)[i] = make_uint4(0u, 0u, 0u, 0u);
+  dsrl_tail::load_wg_weights<T>(s_wb, s_b, weight, bias);
+  dsrl_tail::fill_wg_table<T, DxTable<T>::kSteps, kDxGroups>(s_wtb, [&](int k, int ci) {
     const int n = dx_table_col<T>(k), co = dsrl_tail::col_class(n);
     return co < kC && ci < kC ? weight[(ci * kC + co) * 4 + dsrl_tail::col_pos(n)] : 0.f;
   });
-  // Each warp loads, multiplies and reduces its 16-pixel part of the tile
-  // (logits, dlogits, dX) on its own; the block meets twice a tile, around
-  // dW, which takes every warp's part.
-  long long tile = blockIdx.x;
-  long long p0 = tile * kTileP + warp * kWarpP;
-  const dsrl_tail::PixelPos pos = dsrl_tail::pixel_pos(p0, hw);
-  dsrl_tail::load_x_part<T>(s_x, x, p0, pos, npix, hw, lane);
-  dsrl_tail::cp_async_commit();
-  if (lane < kWarpP) {
-    const dsrl_tail::PixelInfo info =
-        dsrl_tail::pixel_info(labels, p0 + lane, dsrl_tail::advance(pos, lane, hw), npix, width, hw);
-    s_lab[lane] = info.labels4;
-    s_off[lane] = info.xoff;
-  }
+  dsrl_tail::wg_fence_proxy();
+  __syncthreads();   // the tables and the zeroed slabs
 
-  // db: thread tid < 240 sums logits column tid % 80 over the pixels of part
-  // tid / 80 of the tile into its slot s_db[tid].
-  constexpr int kDbParts = kThreads / kNPad, kDbSpan = (kTileP + kDbParts - 1) / kDbParts;
-  const int db_col = tid % kNPad, db_part = tid / kNPad;
-  if (db_part < kDbParts) s_db[tid] = 0.f;
-  float dw_acc[2][4] = {};   // dW^T tiles warp and warp + 8 (of 15)
-  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
-    const int cur = it & 1;
-    const bool more = tile + gridDim.x < ntiles;
-    const long long p0_next = p0 + stride;
-    const dsrl_tail::PixelPos pos_next = dsrl_tail::pixel_pos(p0_next, hw);
-    __syncthreads();   // every warp is done with the previous tile (dW reads all parts)
-    if (more) dsrl_tail::load_x_part<T>(s_x + (cur ^ 1) * kSlabElems, x, p0_next, pos_next, npix, hw, lane);
-    dsrl_tail::cp_async_commit();
-    dsrl_tail::cp_async_wait<1>();
-    __syncwarp();      // this part's slab has landed
-    float acc[dsrl_tail::kNT][4];
-    dsrl_tail::tile_logits_mma<T>(s_x + cur * kSlabElems, s_wb, lane, acc);
-    // The next part's labels and offsets: loaded now, stored after the
-    // softmax (out of the registers' busiest stretch, the logits product).
-    dsrl_tail::PixelInfo info_next = {0, 0, 0u};
-    if (lane < kWarpP && more)
-      info_next = dsrl_tail::pixel_info(labels, p0_next + lane, dsrl_tail::advance(pos_next, lane, hw),
-                                        npix, width, hw);
-    // Lane (g, t) owns output position t of pixels g and g + 8: it turns
-    // their logits into dlogits in place, in the accumulators.
-    to_dlogits(dsrl_tail::lane_logits<0>(acc, s_b), s_lab[cur * kWarpP + g] >> (8 * t) & 0xff,
-               p0 + g < npix, scale, ignore_label);
-    to_dlogits(dsrl_tail::lane_logits<1>(acc, s_b), s_lab[cur * kWarpP + g + 8] >> (8 * t) & 0xff,
-               p0 + g + 8 < npix, scale, ignore_label);
-    if (lane < kWarpP && more) {
-      s_lab[(cur ^ 1) * kWarpP + lane] = info_next.labels4;
-      s_off[(cur ^ 1) * kWarpP + lane] = info_next.xoff;
-    }
-    // The dlogits to this warp's shared tile for dW and db (row p, column n).
+  BwdWalk<T> w;
+  w.x = x;
+  w.labels = labels;
+  w.s_x = reinterpret_cast<T*>(s_xall + warp * 2 * CoreSlab<T>::kBytes);
+  w.s_xlo = reinterpret_cast<T*>(s_xall + S::kX + warp * CoreSlab<T>::kBytes);
+  w.stage = s_stage + wg * DlStage<T>::kBytes;
+  w.s_b = s_b;
+  w.scale = *scale_ptr;
+  w.hw = (unsigned)height * (unsigned)width;
+  w.ntiles = (npix + kWgM - 1) / kWgM;
+  w.groups = (long long)gridDim.x * kWG;
+  w.stride = (unsigned)w.groups * kWgM;
+  w.tile = (long long)blockIdx.x * kWG + wg;
+  w.npix = npix;
+  w.width = width;
+  w.ignore_label = ignore_label;
+  w.lane = lane;
+  w.it = 0;
+  w.w4 = w4;
+  w.bar = 1 + wg;
+  w.desc_w = dsrl_tail::wg_desc(s_wb);
+  w.desc_wt = dsrl_tail::wg_desc(s_wtb);
+  w.desc_stage = dsrl_tail::wg_desc(w.stage, kDlLbo, kDlSbo);
+  w.desc_slab = dsrl_tail::wg_desc(s_xall + 4 * wg * 2 * CoreSlab<T>::kBytes, CoreSlab<T>::kLbo,
+                                   CoreSlab<T>::kSbo);
+  w.desc_lo = dsrl_tail::wg_desc(s_xall + S::kX + 4 * wg * CoreSlab<T>::kBytes, CoreSlab<T>::kLbo,
+                                 CoreSlab<T>::kSbo);
+  float dw[2][3][4], db[kC];
 #pragma unroll
-    for (int nt = 0; nt < dsrl_tail::kNT; ++nt) {
-      *reinterpret_cast<float2*>(s_l + g * kSL + nt * 8 + 2 * t) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(s_l + (g + 8) * kSL + nt * 8 + 2 * t) = make_float2(acc[nt][2], acc[nt][3]);
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ct = 0; ct < 3; ++ct)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dw[mt][ct][j] = 0.f;
+#pragma unroll
+  for (int co = 0; co < kC; ++co) db[co] = 0.f;
+  if (w.tile < w.ntiles) {   // uniform over the warpgroup
+    w.p0 = w.tile * kWgM + w4 * kWarpP;
+    w.pos = dsrl_tail::pixel_pos(w.p0, w.hw);
+    load_slab<T, CoreSlab<T>>(w, w.s_x, 0);
+    dsrl_tail::cp_async_commit();
+    if (w.tile + w.groups < w.ntiles) load_slab<T, CoreSlab<T>>(w, w.s_x + CoreSlab<T>::kElems, 1);
+    dsrl_tail::cp_async_commit();
+    w.labels4 = dsrl_tail::pixel_info(labels, w.p0 + (lane & (kWarpP - 1)),
+                                      dsrl_tail::advance(w.pos, lane & (kWarpP - 1), w.hw), npix, width,
+                                      w.hw).labels4;
+    dsrl_tail::WgA<T> a;
+    float acc[kNT][4], dxa[3][4];
+    uint32_t lo[sizeof(T) == 4 ? kNT : 1][4], pk[kNPad / 16][4];
+    while (bwd_step<T>(w, dx, a, acc, lo, pk, dxa, dw, db)) {
     }
-    __syncwarp();      // the dlogits leave the registers: dX reads them back
-    part_dx<T>(s_l, s_wtb, s_off + cur * kWarpP, dx, p0, npix, hw, lane);
-    __syncthreads();   // every warp's dlogits are in place
-    const T* xs = s_xall + cur * kSlabElems;
-    tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp, lane, dw_acc[0]);
-    if (warp + 8 < 15) tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp + 8, lane, dw_acc[1]);
-    if (db_part < kDbParts) {
-      float sum = 0.f;
-      const int p_end = min(kTileP, (db_part + 1) * kDbSpan);
-      for (int p = db_part * kDbSpan; p < p_end; ++p)
-        sum += s_lall[(p / kWarpP) * kWarpL + (p % kWarpP) * kSL + db_col];
-      s_db[tid] += sum;
-    }
-    p0 = p0_next;
   }
   dsrl_tail::cp_async_wait<0>();
-  __syncthreads();
+  __syncthreads();   // every warpgroup is done with the staging: the reductions reuse it
 
-  // The block's partial, float64, at column pos*C + co of logits column n.
-  // dW from the accumulators (each entry has one owner); db from the parts'
-  // column sums, in part order.
-  double* part = partials + (long long)blockIdx.x * kRows * kCols;
+  // Each warpgroup's dW^T rows 0-63 (dw[0]) and each warp's rows 64-79
+  // (dw[1]), and each warp's db sums over its lanes g (a fixed tree of
+  // shuffles), in the slabs' and the staging's place.
+  float* s_dw = reinterpret_cast<float*>(s_xall);                 // [wg][64][24]
+  float* s_dwt = s_dw + kWG * kWgM * 24;                          // [warp][16][24]
+  double* s_db = reinterpret_cast<double*>(s_dwt + BwdShape<T>::kWarps * 16 * 24);   // [warp][t][C]
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int id = warp + 8 * s;
-    if (id < 15) {
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = (id / 3) * 16 + g + (j >= 2 ? 8 : 0);
-        const int ci = (id % 3) * 8 + 2 * t + (j & 1);
-        const int co = dsrl_tail::col_class(n);
-        if (co < kC && ci < kC) part[ci * kCols + dsrl_tail::col_pos(n) * kC + co] = (double)dw_acc[s][j];
+    for (int ct = 0; ct < 3; ++ct)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ci = ct * 8 + 2 * t + j, r = g + 8 * h;
+        s_dw[(wg * kWgM + 16 * w4 + r) * 24 + ci] = dw[0][ct][2 * h + j];
+        s_dwt[(warp * 16 + r) * 24 + ci] = dw[1][ct][2 * h + j];
       }
-    }
-  }
-  if (tid < kNPad && dsrl_tail::col_class(tid) < kC) {
-    double sum = 0.0;
 #pragma unroll
-    for (int i = 0; i < kDbParts; ++i) sum += (double)s_db[i * kNPad + tid];
-    part[kC * kCols + dsrl_tail::col_pos(tid) * kC + dsrl_tail::col_class(tid)] = sum;
+  for (int co = 0; co < kC; ++co) {
+    double v = db[co];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (g == 0) s_db[(warp * 4 + t) * kC + co] = v;
+  }
+  __syncthreads();
+  // The block's partial, float64, at column pos*C + co (logits column m).
+  double* part = partials + (long long)blockIdx.x * kRows * kCols;
+  for (int i = threadIdx.x; i < kC * kCols; i += blockDim.x) {
+    const int ci = i / kCols, col = i - ci * kCols, pos = col / kC, co = col - pos * kC;
+    const int m = 8 * (co / 2) + 2 * pos + co % 2;   // col_class(m) = co, col_pos(m) = pos
+    double sum = 0.0;
+    if (m < kWgM) {
+#pragma unroll
+      for (int k = 0; k < kWG; ++k) sum += (double)s_dw[(k * kWgM + m) * 24 + ci];
+    } else {
+#pragma unroll
+      for (int k = 0; k < BwdShape<T>::kWarps; ++k) sum += (double)s_dwt[(k * 16 + m - kWgM) * 24 + ci];
+    }
+    part[i] = sum;
+  }
+  for (int i = threadIdx.x; i < kCols; i += blockDim.x) {
+    const int pos = i / kC, co = i - pos * kC;
+    double sum = 0.0;
+    for (int k = 0; k < BwdShape<T>::kWarps; ++k) sum += s_db[(k * 4 + pos) * kC + co];
+    part[kC * kCols + i] = sum;
   }
 }
 
@@ -647,7 +1008,7 @@ int persistent_grid(K kernel, int threads, int smem, long long blocks_needed, in
 
 template <typename T>
 int fwd_grid(long long npix, int* grid) {
-  const long long tiles = (npix + dsrl_tail::kWgM - 1) / dsrl_tail::kWgM;
+  const long long tiles = (npix + kWgM - 1) / kWgM;
   return persistent_grid(fused_tail_fwd_kernel<T>, FwdShape<T>::kThreads, FwdSmem<T>::kBytes,
                          (tiles + FwdShape<T>::kWG - 1) / FwdShape<T>::kWG, grid);
 }
@@ -672,8 +1033,9 @@ int launch_fwd(const void* x, const float* weight, const float* bias, const uint
 
 template <typename T>
 int bwd_grid(long long npix, int* grid) {
-  return persistent_grid(fused_tail_bwd_kernel<T>, kThreads, BwdSmem<T>::kBytes,
-                         (npix + kTileP - 1) / kTileP, grid);
+  const long long tiles = (npix + kWgM - 1) / kWgM;
+  return persistent_grid(fused_tail_bwd_kernel<T>, BwdShape<T>::kThreads, BwdSmem<T>::kBytes,
+                         (tiles + BwdShape<T>::kWG - 1) / BwdShape<T>::kWG, grid);
 }
 
 template <typename T>
@@ -685,7 +1047,7 @@ int launch_bwd(const void* x, const float* weight, const float* bias, const uint
   const int err0 = bwd_grid<T>(npix, &expected);
   if (err0) return err0;
   if (grid != expected) return (int)cudaErrorInvalidValue;   // partials sized for another grid
-  fused_tail_bwd_kernel<T><<<grid, kThreads, BwdSmem<T>::kBytes, s>>>(
+  fused_tail_bwd_kernel<T><<<grid, BwdShape<T>::kThreads, BwdSmem<T>::kBytes, s>>>(
       static_cast<const T*>(x), weight, bias, labels, scale, static_cast<T*>(dx), partials,
       height, width, npix, ignore_label);
   cudaError_t err = cudaGetLastError();
@@ -710,6 +1072,12 @@ int dsrl_fused_tail_fwd_grid(int dtype, long long npix, int* grid) {
 
 int dsrl_fused_tail_bwd_grid(int dtype, long long npix, int* grid) {
   return dtype ? bwd_grid<__nv_bfloat16>(npix, grid) : bwd_grid<float>(npix, grid);
+}
+
+// The backward kernel's dynamic shared memory a block, in bytes (reported
+// beside its registers).
+int dsrl_fused_tail_bwd_smem(int dtype) {
+  return dtype ? BwdSmem<__nv_bfloat16>::kBytes : BwdSmem<float>::kBytes;
 }
 
 // Both passes on `stream`.  ce_partials and cnt_partials hold `grid` slots

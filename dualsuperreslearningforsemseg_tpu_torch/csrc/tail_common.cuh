@@ -27,10 +27,11 @@
 // layout of a warp's 16 pixels, built in registers from its (C, 16) slab)
 // and the accumulator layout:
 // * `tile_logits_mma` (`mma.sync`, one warp's 16 pixels, B fragments from
-//   a shared table): K1 backward and K3.
+//   a shared table): K3 (K1 backward takes `mma_3xtf32` / `mma_bf16` for
+//   the last 16 rows of dW^T).
 // * `issue_logits_wgmma` (`wgmma.mma_async`, a warpgroup's 64 pixels, B
 //   read by the tensor cores from a shared table through a matrix
-//   descriptor, asynchronous): K1 forward.
+//   descriptor, asynchronous): K1 forward and backward.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -273,14 +274,23 @@ __device__ __forceinline__ PixelPos advance(PixelPos s, unsigned d, unsigned hw)
   return {s.b + q, r - q * hw};
 }
 
+// Where element (channel ci, pixel p) of a warp's (C, 16) activation slab
+// lies (in elements): row ci at stride kSlabStride (24 elements: the
+// fragment loads hit distinct banks; rows stay 16-byte aligned).  K3 and
+// K1 forward; K1 backward keeps its slabs in the tensor cores' layout
+// (fused_tail.cu).  Every layout keeps the 16 bytes of one channel's
+// pixels [16c / size, 16(c + 1) / size) together.
+template <typename T> struct RowSlab {
+  static __host__ __device__ constexpr int off(int ci, int p) { return ci * kSlabStride + p; }
+};
+
 // Starts loading the activation of one warp's pre-tail pixels [p0, p0 + 16)
-// (p0 at `pos0`) as a (C, 16) slab of row stride kSlabStride (24 elements:
-// the fragment loads hit distinct banks; rows stay 16-byte aligned):
-// 16-byte cp.async copies where 16 bytes of a channel plane lie in one
-// sample and are aligned, else plain loads (a part that crosses a sample,
-// an odd plane size, the ragged end).  Pixels >= npix are zero.  The
-// caller commits the group and, after waiting for it, syncs the warp.
-template <typename T>
+// (p0 at `pos0`) as a (C, 16) slab laid out by `Layout`: 16-byte cp.async
+// copies where 16 bytes of a channel plane lie in one sample and are
+// aligned, else plain loads (a part that crosses a sample, an odd plane
+// size, the ragged end).  Pixels >= npix are zero.  The caller commits the
+// group and, after waiting for it, syncs the warp.
+template <typename T, typename Layout = RowSlab<T>>
 __device__ __forceinline__ void load_x_part(T* slab, const T* __restrict__ x, long long p0, PixelPos pos0,
                                             long long npix, unsigned hw, int lane) {
   constexpr int V = 16 / sizeof(T);
@@ -288,7 +298,7 @@ __device__ __forceinline__ void load_x_part(T* slab, const T* __restrict__ x, lo
   for (int i = lane; i < kC * kChunks; i += 32) {
     const int ci = i / kChunks, c = i - ci * kChunks;
     const PixelPos ps = advance(pos0, c * V, hw);
-    T* dst = slab + ci * kSlabStride + c * V;
+    T* dst = slab + Layout::off(ci, c * V);
     const T* src = x + (ps.b * kC + ci) * (long long)hw + ps.rem;
     if (p0 + c * V + V <= npix && ps.rem + V <= hw && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
       cp_async16(dst, src);
@@ -309,9 +319,8 @@ __device__ __forceinline__ void load_x_part(T* slab, const T* __restrict__ x, lo
 // The common case of `load_x_part`, uniform over the warp: when the part
 // lies in one sample and every channel's 16 pixels are whole aligned
 // 16-byte chunks, starts their cp.async copies without per-chunk position
-// checks and returns true; else loads nothing and returns false.  (K1
-// forward's; in K1 backward the extra path costs registers it has not got.)
-template <typename T>
+// checks and returns true; else loads nothing and returns false (K1).
+template <typename T, typename Layout = RowSlab<T>>
 __device__ __forceinline__ bool load_x_part_whole(T* slab, const T* __restrict__ x, long long p0, PixelPos pos0,
                                                   long long npix, unsigned hw, int lane) {
   constexpr int V = 16 / sizeof(T);
@@ -322,7 +331,7 @@ __device__ __forceinline__ bool load_x_part_whole(T* slab, const T* __restrict__
     return false;
   for (int i = lane; i < kC * kChunks; i += 32) {
     const int ci = i / kChunks, c = i - ci * kChunks;
-    cp_async16(slab + ci * kSlabStride + c * V, part + ci * (long long)hw + c * V);
+    cp_async16(slab + Layout::off(ci, c * V), part + ci * (long long)hw + c * V);
   }
   return true;
 }
@@ -448,21 +457,17 @@ template <typename T> struct WgTable {
   static constexpr int kBytes = (sizeof(T) == 4 ? 2 : 1) * kPlane;
 };
 
-// The logits' wgmma B table (W[ci, col_class(n), col_pos(n)], split or
-// rounded as the products see it) and s_b[co] = bias[co] (s_b[19] = 0).
-// The caller makes the stores visible to the tensor cores
-// (`wg_fence_proxy`) and synchronises the block afterwards.
-template <typename T>
-__device__ __forceinline__ void load_wg_weights(uint32_t* tab, float* s_b, const float* __restrict__ weight,
-                                                const float* __restrict__ bias) {
-  constexpr int kWords = WgTable<T>::kPlane / 4;
-  const auto value = [&](int ci, int n) {
-    const int co = col_class(n);
-    return ci < kC && co < kC ? weight[(ci * kC + co) * 4 + col_pos(n)] : 0.f;
-  };
+// A wgmma B table of `Steps` k steps and `Groups` groups of 8 columns in
+// the layout above (a k step takes Groups * kWgSbo bytes): value(k, n)
+// split into TF32 hi and lo planes (float32 x) or rounded to bfloat16.
+// Filled by the whole block.
+template <typename T, int Steps, int Groups, typename F>
+__device__ __forceinline__ void fill_wg_table(uint32_t* tab, F value) {
+  constexpr int kWords = Steps * Groups * kWgSbo / 4;
   for (int i = threadIdx.x; i < kWords; i += blockDim.x) {
-    // word i = (((s * 10 + n / 8) * 2 + half) * 8 + n % 8) * 4 + e
-    const int e = i & 3, n = (i >> 6) % kNT * 8 + ((i >> 2) & 7), half = (i >> 5) & 1, s = (i >> 6) / kNT;
+    // word i = (((s * Groups + n / 8) * 2 + half) * 8 + n % 8) * 4 + e
+    const int e = i & 3, n = (i >> 6) % Groups * 8 + ((i >> 2) & 7), half = (i >> 5) & 1,
+              s = (i >> 6) / Groups;
     if constexpr (sizeof(T) == 4) {
       split_tf32(value(8 * s + 4 * half + e, n), tab[i], tab[kWords + i]);
     } else {
@@ -470,6 +475,19 @@ __device__ __forceinline__ void load_wg_weights(uint32_t* tab, float* s_b, const
       tab[i] = pack_bf16(value(k, n), value(k + 1, n));   // lower k at the lower address
     }
   }
+}
+
+// The logits' wgmma B table (W[ci, col_class(n), col_pos(n)], split or
+// rounded as the products see it) and s_b[co] = bias[co] (s_b[19] = 0).
+// The caller makes the stores visible to the tensor cores
+// (`wg_fence_proxy`) and synchronises the block afterwards.
+template <typename T>
+__device__ __forceinline__ void load_wg_weights(uint32_t* tab, float* s_b, const float* __restrict__ weight,
+                                                const float* __restrict__ bias) {
+  fill_wg_table<T, WgTable<T>::kSteps, kNT>(tab, [&](int ci, int n) {
+    const int co = col_class(n);
+    return ci < kC && co < kC ? weight[(ci * kC + co) * 4 + col_pos(n)] : 0.f;
+  });
   for (int co = threadIdx.x; co < kC + 1; co += blockDim.x) s_b[co] = co < kC ? bias[co] : 0.f;
 }
 
@@ -479,13 +497,13 @@ __device__ __forceinline__ void wg_fence_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The matrix descriptor of a no-swizzle operand at `smem`: start address,
-// leading and stride byte offsets in 16-byte units; base offset and
-// layout type 0.
-__device__ __forceinline__ uint64_t wg_desc(const void* smem) {
+// The matrix descriptor of a no-swizzle K-major operand at `smem`: start
+// address, leading byte offset (K-adjacent core matrices) and stride byte
+// offset (8-row groups along M or N), all in 16-byte units; base offset
+// and layout type 0.
+__device__ __forceinline__ uint64_t wg_desc(const void* smem, int lbo = kWgLbo, int sbo = kWgSbo) {
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(kWgLbo >> 4) << 16 |
-         (uint64_t)(kWgSbo >> 4) << 32;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -498,9 +516,10 @@ template <int N> __device__ __forceinline__ void wg_wait() {
 
 // Keeps the compiler from moving accesses of the accumulators across a
 // wgmma's issue or wait (the tensor cores write them in between).
-__device__ __forceinline__ void wg_fence_acc(float (&d)[kNT][4]) {
+template <int NT>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[NT][4]) {
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[nt][j])::"memory");
 }

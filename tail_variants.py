@@ -15,10 +15,12 @@ the same launches replayed from a CUDA graph (device time).  A variant's
 results are wrong by construction: only its time means something, next to
 the unchanged build's from the same run.  ``--parent DIR`` also builds the
 ``fused_tail.cu`` of another checkout (e.g. the parent commit unpacked with
-``git archive``) and times its forward before and after all the others, so
-the two forwards are compared on one card in one run.  Prints each build's
-``-Xptxas -v`` summary, one line per timing, then the card's name and power
-limit and a JSON object of all the timings.
+``git archive``) and times its forward and backward in turns with this
+checkout's unchanged build, parent, this, this, parent (the first two
+before all the variants, the last two after them), so the two are
+compared on one card in one run.  Prints each build's ``-Xptxas -v``
+summary, one line per timing, then the card's name and power limit and a
+JSON object of all the timings.
 
 ``--k4`` times K4 (``csrc/fa_pairwise.cu``) instead: ``chip_smoke.py``'s
 K4 phase (correctness at every shape, then a wrapper call and a CUDA-graph
@@ -44,6 +46,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ATOMICS = ('  if (valid) atomicAdd(&hist[cls], 1);\n  if (hit) atomicAdd(&hist[kC + cls], 1);\n'
            '  if (active && lab < kC) atomicAdd(&hist[2 * kC + lab], 1);\n')
 LAUNCH_BOUNDS = '__global__ void __launch_bounds__(kThreads, 2)'
+BWD_DX = '  issue_dx_wgmma<T>(dxa, acc, lo, pk, w.desc_wt);\n'
+BWD_DW = '  issue_dw_wgmma<T>(dw[0], w.desc_stage, w.desc_slab, w.desc_lo, buf);\n'
+BWD_DW_TAIL = '  tail_rows_dw<T>(dw[1], w.stage, slab, w.s_xlo, w.w4, w.lane);\n'
+BWD_DX_3XTF32 = ('      wgmma_n24_tf32(dxa, lo_a, hi_b, nt > 0);\n      wgmma_n24_tf32(dxa, hi_a, lo_b, 1);\n'
+                 '      wgmma_n24_tf32(dxa, hi_a, hi_b, 1);\n')
+BWD_DW_3XTF32 = ('      wgmma_n24_ss<T>(dw, a_lo, b_hi);\n      wgmma_n24_ss<T>(dw, a_hi, b_lo);\n'
+                 '      wgmma_n24_ss<T>(dw, a_hi, b_hi);\n')
+BWD_SHAPE = 'static constexpr int kWG = sizeof(T) == 4 ? 3 : 4;'
 FWD_CE = 'const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);'
 WG_3XTF32 = ('      wgmma_tf32(d, a.lo[s], hi, s > 0);\n      wgmma_tf32(d, a.hi[s], lo, 1);\n'
              '      wgmma_tf32(d, a.hi[s], hi, 1);\n')
@@ -54,7 +64,9 @@ VARIANTS = {
     'one_tf32_pass': {'tail_common.cuh': [
         ('  mma_tf32(d, a_lo, b_hi);\n  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_hi, b_hi);',
          '  mma_tf32(d, a_hi, b_hi);'),
-        (WG_3XTF32, '      wgmma_tf32(d, a.hi[s], hi, s > 0);\n')]},
+        (WG_3XTF32, '      wgmma_tf32(d, a.hi[s], hi, s > 0);\n')],
+        'fused_tail.cu': [(BWD_DX_3XTF32, '      wgmma_n24_tf32(dxa, hi_a, hi_b, nt > 0);\n'),
+                          (BWD_DW_3XTF32, '      wgmma_n24_ss<T>(dw, a_hi, b_hi);\n')]},
     'no_logits_mma': {'tail_common.cuh': [
         ('mma_3xtf32(acc[nt], a_hi, a_lo, b_hi, b_lo);', 'acc[nt][0] += __uint_as_float(b_hi[0] ^ a_lo[0]);'),
         ('mma_bf16(acc[nt], a, b);', 'acc[nt][0] += __uint_as_float(b[0] ^ a[0]);'),
@@ -69,23 +81,25 @@ VARIANTS = {
     'no_histograms': {'eval_tail.cu': [(ATOMICS, '')]},
     'no_async_loads': {'tail_common.cuh': [
         ('      cp_async16(dst, src);\n', '      dst[0] = from_float<T>(0.f);\n'),
-        ('    cp_async16(slab + ci * kSlabStride + c * V, part + ci * (long long)hw + c * V);\n',
-         '    slab[ci * kSlabStride + c * V] = from_float<T>(0.f);\n')]},
-    'no_dx': {'fused_tail.cu': [(
-        '    part_dx<T>(s_l, s_wtb, s_off + cur * kWarpP, dx, p0, npix, hw, lane);\n', '')]},
-    'no_dw': {'fused_tail.cu': [(
-        '    tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp, lane, dw_acc[0]);\n'
-        '    if (warp + 8 < 15) tile_dw<T>(s_lall, xs, 2 * kSlabElems, warp + 8, lane, dw_acc[1]);\n',
-        '')]},
-    'three_blocks_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '3)'))],
-                            'fused_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '3)'))]},
-    'one_block_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))],
-                         'fused_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))]},
+        ('    cp_async16(slab + Layout::off(ci, c * V), part + ci * (long long)hw + c * V);\n',
+         '    slab[Layout::off(ci, c * V)] = from_float<T>(0.f);\n')]},
+    # K1 backward: without its dX product (dX's stores stay), without dW^T's
+    # wgmma product (rows 0-63) or without its mma.sync rows 64-79.
+    'no_dx': {'fused_tail.cu': [(BWD_DX, '')]},
+    'no_dw': {'fused_tail.cu': [(BWD_DW, '')]},
+    'no_dw_rows_64_79': {'fused_tail.cu': [(BWD_DW_TAIL, '')]},
+    'three_blocks_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '3)'))]},
+    'one_block_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))]},
     # K1 forward only: one warpgroup a block fewer or more (float32 x / bfloat16 x).
     'fwd_warpgroups_4_5': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '4 : 5'))]},
     'fwd_warpgroups_6_7': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '6 : 7'))]},
+    # K1 backward only: 2 or 3 warpgroups a block for both dtypes (float32
+    # x has not the shared memory for 4).
+    'bwd_warpgroups_2': {'fused_tail.cu': [(BWD_SHAPE, BWD_SHAPE.replace('sizeof(T) == 4 ? 3 : 4', '2'))]},
+    'bwd_warpgroups_3': {'fused_tail.cu': [(BWD_SHAPE, BWD_SHAPE.replace('sizeof(T) == 4 ? 3 : 4', '3'))]},
 }
 FWD_ONLY = tuple(name for name in VARIANTS if name.startswith('fwd_'))
+K1_ONLY = FWD_ONLY + ('no_dx', 'no_dw', 'no_dw_rows_64_79', 'bwd_warpgroups_2', 'bwd_warpgroups_3')
 KERNELS = ('eval_tail', 'fused_tail')
 
 
@@ -301,8 +315,8 @@ def main():
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--parent', help="a checkout whose K1 forward (with --k4: K4) is timed "
-                                         "beside this one's")
+    parser.add_argument('--parent', help="a checkout whose K1 forward and backward (with --k4: "
+                                         "K4) are timed beside this one's")
     parser.add_argument('--k4', action='store_true', help="time K4 instead of the tail kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -328,7 +342,7 @@ def main():
     dirs = edited_sources(_build.CSRC_DIR, out)
     procs = {}
     for name, d in dirs.items():
-        for kern in (('fused_tail',) if name in FWD_ONLY else KERNELS):
+        for kern in (('fused_tail',) if name in K1_ONLY else KERNELS):
             procs[(name, kern)] = start_build(d, kern, os.path.join(d, kern + '.so'))
     if args.parent:
         procs[('parent', 'fused_tail')] = start_build(
@@ -396,38 +410,14 @@ def main():
         print("{}: {:.4f} ms a call, {:.4f} ms replayed from a graph (grid {})".format(key, ms, graph, grid),
               flush=True)
 
-    def time_parent(when):
-        if ('parent', 'fused_tail') in libs:
-            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-                x = x1.to(dtype)
-                fn, fargs, grid, _keep = k1_forward_args(libs[('parent', 'fused_tail')], code, x, labels1)
-                timed('K1 forward parent ({}) {}'.format(when, str(dtype).replace('torch.', '')),
-                      fn, fargs, grid)
-
-    time_parent('first')
-    for (name, kern), lib in sorted(libs.items()):
-        if name == 'parent':
-            continue
+    def time_k1(lib, label, backward=True):
+        """K1 forward and (unless not asked) backward of one build, both dtypes."""
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            suffix = '{} {}'.format(name, str(dtype).replace('torch.', ''))
-            if kern == 'eval_tail':
-                x, labels = x3.to(dtype), labels3
-                b, _, h, w = x.shape
-                grid = grid_of(lib.dsrl_eval_tail_grid, code, b * h * w)
-                fn = lib.dsrl_eval_tail
-                fn.argtypes, fn.restype = K3_SIGNATURE, ctypes.c_int
-                pred = torch.empty_like(labels)
-                partials = torch.empty(grid, dtype=torch.float64, device='cuda')
-                ce = torch.empty((), dtype=torch.float64, device='cuda')
-                counts = torch.zeros(3 * 19 + 2, dtype=torch.int64, device='cuda')
-                timed('K3 ' + suffix, fn, (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                                           labels.data_ptr(), pred.data_ptr(), partials.data_ptr(), grid,
-                                           ce.data_ptr(), counts.data_ptr(), b, h, w, 255, stream), grid)
-                continue
+            suffix = '{} {}'.format(label, str(dtype).replace('torch.', ''))
             x, labels = x1.to(dtype), labels1
             fn, fargs, grid, _keep = k1_forward_args(lib, code, x, labels)
             timed('K1 forward ' + suffix, fn, fargs, grid)
-            if name in FWD_ONLY:
+            if not backward:
                 continue
             b, _, h, w = x.shape
             grid = grid_of(lib.dsrl_fused_tail_bwd_grid, code, b * h * w)
@@ -440,7 +430,37 @@ def main():
                                                 labels.data_ptr(), one.data_ptr(), dx.data_ptr(),
                                                 partials.data_ptr(), grid, dw.data_ptr(), db.data_ptr(),
                                                 b, h, w, 255, stream), grid)
-    time_parent('last')
+
+    def parent_and_this(when):
+        """The parent's K1 and this build's, in this order 'first' and in
+        the other 'last': parent, this, this, parent."""
+        turns = [('parent', 'parent ({})'.format(when)), ('as_built', 'as_built ({})'.format(when))]
+        for name, label in (turns if when == 'first' else turns[::-1]):
+            if (name, 'fused_tail') in libs:
+                time_k1(libs[(name, 'fused_tail')], label)
+
+    parent_and_this('first')
+    for (name, kern), lib in sorted(libs.items()):
+        if name == 'parent' or (name, kern) == ('as_built', 'fused_tail'):
+            continue
+        if kern == 'fused_tail':
+            time_k1(lib, name, backward=name not in FWD_ONLY)
+            continue
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            suffix = '{} {}'.format(name, str(dtype).replace('torch.', ''))
+            x, labels = x3.to(dtype), labels3
+            b, _, h, w = x.shape
+            grid = grid_of(lib.dsrl_eval_tail_grid, code, b * h * w)
+            fn = lib.dsrl_eval_tail
+            fn.argtypes, fn.restype = K3_SIGNATURE, ctypes.c_int
+            pred = torch.empty_like(labels)
+            partials = torch.empty(grid, dtype=torch.float64, device='cuda')
+            ce = torch.empty((), dtype=torch.float64, device='cuda')
+            counts = torch.zeros(3 * 19 + 2, dtype=torch.int64, device='cuda')
+            timed('K3 ' + suffix, fn, (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                                       labels.data_ptr(), pred.data_ptr(), partials.data_ptr(), grid,
+                                       ce.data_ptr(), counts.data_ptr(), b, h, w, 255, stream), grid)
+    parent_and_this('last')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)

@@ -15,13 +15,18 @@ device.  Run on the GPU machine with
   rtol * (|plain| + max|plain|), rtol 1e-5 for dX and 1e-4 for dW and db,
   plus one bfloat16 ulp for a bfloat16 dX; two backward launches
   bit-identical; all pixels ignored gives 0 and zero gradients.
-* The tile designs of K3 and K1 backward (persistent grid over 128-pixel
-  tiles, tensor-core products): a single pixel, tiles that cross image
-  rows and samples (w = 40, 201), a pixel count that is not a multiple of
-  the tile, more tiles than blocks with a grid that does not divide them
-  (3 x 97 x 201 = 457 tiles; 8192 at the full shape), in float32 and
-  bfloat16: K3 on exact inputs equal to the plain version, K1 as above;
-  every pixel ignored gives zero CE, zero counts and zero gradients.
+* The tile designs of K3 (persistent grid over 128-pixel tiles, mma.sync)
+  and K1 backward (persistent warpgroups over 64-pixel tiles, wgmma): a
+  single pixel, tiles that cross image rows and samples (w = 40, 201),
+  a pixel count that is not a multiple of the tile, more tiles than
+  blocks with a grid that does not divide them (3 x 97 x 201 = 457 tiles
+  of 128, 914 of 64), in float32 and bfloat16: K3 on exact inputs equal
+  to the plain version, K1 as above.  K1 backward also at the edges of its
+  64-pixel tile: 63 and 65 pixels (1 x 3 x 21, 1 x 5 x 13), 64-pixel
+  tiles that cross samples and rows of odd width (3 x 7 x 9) and
+  (2, 64, 128); and, at each shape, every pixel ignored gives gradients
+  that are exactly 0 and free of NaN.  Every pixel ignored gives zero CE
+  and zero counts.
 * K1 forward (persistent warpgroups over 64-pixel tiles, wgmma): at
   (1, 8, 40), (3, 97, 201) and (2, 64, 128) in float32 and bfloat16, the CE
   sum within rel 1e-5 of the plain version and the count equal, two
@@ -237,7 +242,7 @@ def test_eval_tail_tiles(cuda, shape, dtype):
     _assert_same(got, eval_tail_plain(x, weight, bias, labels))
 
 
-@pytest.mark.parametrize('shape', TILE_SHAPES)
+@pytest.mark.parametrize('shape', TILE_SHAPES + [(1, 3, 21), (1, 5, 13), (3, 7, 9), (2, 64, 128)])
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_fused_tail_backward_tiles(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(14)
@@ -254,6 +259,9 @@ def test_fused_tail_backward_tiles(cuda, shape, dtype):
                  flip=2.0 ** -8 * float(weight.abs().max()) if bf16 else None)
     _assert_grad(grads[1], wr.grad, 1e-4)
     _assert_grad(grads[2], br.grad, 1e-4)
+    labels.fill_(255)
+    for g in fused_tail_backward(x, weight, bias, labels, one):
+        assert not bool(g.isnan().any()) and float(g.abs().max()) == 0.0
 
 
 @pytest.mark.parametrize('shape', [(1, 8, 40), (3, 97, 201), (2, 64, 128)])

@@ -39,11 +39,15 @@ from dualsuperreslearningforsemseg_tpu.ops.pallas.fused_tail import (
 from dualsuperreslearningforsemseg_tpu_torch.ops.fused_tail import fused_convt2_ce_mean
 from tail_layout import to_cols
 
-CASES = ['ignore_rows', 'all_ignored', 'labels_25_40', 'ragged']
+# 'tile_edges': 3 x 8 x 12 = 288 pre-tail pixels, not a multiple of the
+# card kernel's 64-pixel tile, whose tiles cross samples (96 pixels each)
+# and rows; the TPU kernel needs its 72 grouped pixels to be a multiple of 8.
+CASES = ['ignore_rows', 'all_ignored', 'labels_25_40', 'ragged', 'tile_edges']
+SIZES = {'ragged': (1, 4, 6), 'tile_edges': (3, 4, 6)}
 
 
 def _case(rng, name):
-    b, h, w = (1, 4, 6) if name == 'ragged' else (2, 8, 16)
+    b, h, w = SIZES.get(name, (2, 8, 16))
     c = 19
     y1 = rng.standard_normal((b, h, w, 4, c)).astype(np.float32)
     wt = (rng.standard_normal((c, c, 2, 2)) * 0.2).astype(np.float32)
