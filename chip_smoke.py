@@ -13,7 +13,8 @@ nothing of JAX.  Phases, each fatal on failure:
    tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from wgmma)
    and asynchronous copies (``LDGSTS``) in each kernel function, beside its
    registers, shared memory and spills; the K1 forward kernel must have
-   tensor-core instructions and both K1 backward kernels ``HGMMA``;
+   tensor-core instructions, both K1 backward kernels ``HGMMA``, and both
+   K3 kernels (float32 and bfloat16 x) ``HGMMA`` and no ``HMMA``;
 2. K3: the eval-tail kernel against its plain PyTorch version on the card
    at the benchmark's shape, x (16, 19, 256, 512), float32 with TF32 off and
    bfloat16: (a) inputs whose logits are exact in float32 (every product and
@@ -2160,8 +2161,9 @@ def sass_counts(libs):
     SASS (cuobjdump prints them function by function), with the function's
     ``-Xptxas -v`` registers, shared memory and spills beside them (and
     the K1 backward kernels' dynamic shared memory).  Fails
-    if the K1 forward kernel has no tensor-core instruction, or a K1
-    backward kernel (float32 and bfloat16 x) no ``HGMMA``."""
+    if the K1 forward kernel has no tensor-core instruction, a K1
+    backward kernel (float32 and bfloat16 x) no ``HGMMA``, or a K3 kernel
+    no ``HGMMA`` or any ``HMMA`` (its logits are one ``wgmma`` chain)."""
     cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
     tool = os.path.join(cuda_home, 'bin', 'cuobjdump')
     tool = tool if os.path.isfile(tool) else shutil.which('cuobjdump')
@@ -2201,6 +2203,14 @@ def sass_counts(libs):
                           smem(1 if 'bfloat16' in fn else 0)), flush=True)
             if len(bwd) != 2 or not all(n['HGMMA'] for n in bwd.values()):
                 fail("the K1 backward kernel has no HGMMA (wgmma) instruction: {}".format(bwd))
+        if lib == 'eval_tail':
+            k3 = {fn: n for fn, n in functions.items() if 'eval_tail_kernel' in fn}
+            for fn, n in sorted(k3.items()):
+                print("K3 {}: {} HGMMA (wgmma: logits), {} HMMA; ptxas: {}".format(
+                    readable[fn], n['HGMMA'], n['HMMA'], ptxas.get(fn, 'not reported')), flush=True)
+            if len(k3) != 2 or not all(n['HGMMA'] and not n['HMMA'] for n in k3.values()):
+                fail("a K3 kernel has no HGMMA (wgmma) instruction or still an HMMA (mma.sync): {}"
+                     .format(k3))
 
 
 def main():

@@ -15,26 +15,31 @@
 //              over pixels whose label is not `ignore`
 //   area_target[lab]: over labels < C
 //
-// Design: the mma.sync tile skeleton of tail_common.cuh.  A persistent
-// grid (the SM count times the blocks the occupancy allows per SM) walks
-// tiles of 128 consecutive pre-tail pixels,
-// block i taking tiles i, i + grid, ...  Each of the 8 warps owns 16 pixels
-// of a tile and works on them alone, meeting the other warps only at the
-// end: it loads their (C, 16) activation slab with cp.async into one of its
-// two shared buffers while it computes on the other, loads their labels
-// and class-map offsets into registers one tile ahead, runs the logits (16
-// x 80) = X^T . W on the tensor cores (`tile_logits_mma`: 3xTF32 for
-// float32 x, one bfloat16 pass for bfloat16 x), whose columns are ordered
-// so that each lane ends with the logits of two whole output pixels in its
-// accumulators (tail_common.cuh, `col_pos`); each lane then takes for its
-// two output pixels: CE terms, argmax, the class map (each pair of output pixels of a
-// row written as one 2-byte store by the left one, its right neighbour's
-// class from a shuffle) and the counts.  Each warp counts into private
+// Design: K1 forward's warpgroup walk (tail_common.cuh, `TailWalk`) with
+// this kernel's epilogue.  A persistent grid, one block an SM of 4
+// (float32 x) or 6 (bfloat16 x) warpgroups (`EvalShape`: as many as the
+// registers allow), walks tiles of 64 consecutive pre-tail pixels,
+// warpgroup i taking tiles i, i + all warpgroups, ...  Each warp of a
+// warpgroup owns 16 pixels of its tiles: it loads their (C, 16) slab with
+// cp.async two tiles ahead into a ring of two buffers, and their labels
+// and class-map offsets one tile ahead into its two rows of shared memory
+// (`WarpSmem`; registers are what limits the warpgroups).  The logits (64
+// x 80) = X^T . W of a tile are one chain of `wgmma.mma_async`
+// (`issue_logits_wgmma`: m64n80k8 TF32, 3 k steps x 3 passes for float32
+// x; m64n80k16 bfloat16, 2 k steps for bfloat16 x), A from registers, B
+// from the split or rounded weight table in shared memory.  While a
+// tile's products run the warpgroup starts its next loads; then lane (g,
+// t) adds the bias to its two output pixels (position t of pixels g and g
+// + 8) and takes for each (`tally`): CE terms, argmax, the class map (each
+// pair of output pixels of a row written as one 2-byte store by the left
+// one, its right neighbour's class from a shuffle) and the counts, while
+// the other warpgroups' products run.  Each warp counts into private
 // shared-memory bins with plain shared atomics; at the end the block sums
-// its warps' bins and adds them with one 64-bit global atomic per bin
-// (integer counts: any order is exact), and writes its CE (float64,
-// per-thread sums) to its own slot; a one-block pass sums the slots in a
-// fixed order, so the CE is the same from run to run.
+// its warps' bins in a fixed order (`correct` and `valid` are sums of
+// bins) and adds them with one 64-bit global atomic per count (integer
+// counts: any order is exact), and writes its CE (float64, per-thread
+// sums) to its own slot; a one-block pass sums the slots in a fixed
+// order, so the CE is the same from run to run.
 //
 // Layout: x is NCHW float32 or bfloat16, contiguous; labels and the class
 // map are (B, 2H, 2W) uint8, read and written as 2-byte pairs.  The TPU's
@@ -57,154 +62,191 @@
 namespace {
 
 using dsrl_tail::kC;
-using dsrl_tail::kThreads;
-using dsrl_tail::kTileP;
+using dsrl_tail::kNT;
 using dsrl_tail::kWarpP;
-using dsrl_tail::kWarps;
+using dsrl_tail::kWgM;
 constexpr int kBins = 3 * kC + 2;     // area_pred, area_inter, area_target, correct, valid
 constexpr int kFinalThreads = 1024;
+constexpr int kSlabElems = dsrl_tail::RowSlab<float>::kElems;   // a warp's (C, 16) slab
 
-// Shared memory of the kernel, in bytes (each part a multiple of 16).
-template <typename T> struct EvalSmem {
-  static constexpr int kSlab = kC * dsrl_tail::kSlabStride * (int)sizeof(T);   // one warp's slab
-  static constexpr int kX = kWarps * 2 * kSlab;               // two slabs per warp
-  static constexpr int kW = dsrl_tail::b_table_words<T>(dsrl_tail::LogitsK<T>::kPad, dsrl_tail::kSW) * 4;
-  static constexpr int kB = 80;                               // bias per class (20 floats)
-  static constexpr int kLab = kWarps * 2 * kWarpP * 4;        // labels, two parts per warp
-  static constexpr int kOut = kWarps * 2 * kWarpP * 8;        // class-map offsets, two per warp
-  static constexpr int kHist = (kWarps * kBins * 4 + 15) / 16 * 16;   // per-warp bins
-  static constexpr int kBytes = kX + kW + kB + kLab + kOut + kHist;
+// The block: one an SM, of as many warpgroups as the registers allow
+// (float32 x: 4 at 128 registers a thread; bfloat16 x, whose A fragments
+// take 8 registers instead of 24: 6 at 80).
+template <typename T> struct EvalShape {
+  static constexpr int kWG = sizeof(T) == 4 ? 4 : 6;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kWarps = 4 * kWG;
 };
 
-// The CE, class and counts of one output pixel (pixel p of the warp's
-// part, position t) from its logits row; the class map is written by the
-// kw = 0 lane of each pair.  Every lane of the warp calls it (a shuffle).
-template <typename Row>
-__device__ __forceinline__ void tally(const Row& l, int p, int t, int cur, long long p0, long long npix,
-                                      int ignore_label, const uint32_t* s_lab, const long long* s_out,
-                                      long long out_w, int* hist, uint8_t* __restrict__ pred, double& ce,
-                                      int& n_valid, int& n_correct) {
-  const bool active = p0 + p < npix;
-  const int lab = (s_lab[cur * kWarpP + p] >> (8 * t)) & 0xff;
+// A warp's part of the block's shared memory, byte offsets from its first
+// slab (each part a multiple of 16): its two slabs, the class-map offsets
+// (long long) and the four labels (uint32) of its 16 pixels of two tiles,
+// [tile & 1][pixel], and its bins: area_pred, area_inter and area_target
+// (`correct` and `valid` are the sums of the first two, taken at the end).
+// Everything the warp keeps in shared memory is found from one pointer.
+template <typename T> struct WarpSmem {
+  static constexpr int kOut = 2 * kSlabElems * (int)sizeof(T);
+  static constexpr int kLab = kOut + 2 * kWarpP * 8;
+  static constexpr int kHist = kLab + 2 * kWarpP * 4;
+  static constexpr int kBytes = kHist + (3 * kC * 4 + 15) / 16 * 16;
+};
+
+template <typename T> __device__ __forceinline__ long long* warp_out(T* s_x) {
+  return reinterpret_cast<long long*>(reinterpret_cast<unsigned char*>(s_x) + WarpSmem<T>::kOut);
+}
+template <typename T> __device__ __forceinline__ uint32_t* warp_labels(T* s_x) {
+  return reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(s_x) + WarpSmem<T>::kLab);
+}
+template <typename T> __device__ __forceinline__ int* warp_bins(T* s_x) {
+  return reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(s_x) + WarpSmem<T>::kHist);
+}
+
+// Shared memory of the kernel, in bytes: the wgmma B table first (its
+// descriptors want 16-byte alignment), the bias, each warp's part.
+template <typename T> struct EvalSmem {
+  static constexpr int kW = dsrl_tail::WgTable<T>::kBytes;
+  static constexpr int kB = 80;
+  static constexpr int kBytes = kW + kB + EvalShape<T>::kWarps * WarpSmem<T>::kBytes;
+};
+
+template <typename T> struct EvalWalk : dsrl_tail::TailWalk<T> {
+  uint8_t* pred;
+  double ce;
+};
+
+// Keeps the class-map offset and labels of pixel p0 + lane % 16 of a tile
+// in the warp's row `buf` (lanes l and l + 16 store the same values).
+template <typename T>
+__device__ __forceinline__ void keep_pixel(const EvalWalk<T>& w, int buf, const dsrl_tail::PixelInfo& info) {
+  const int i = buf * kWarpP + (w.lane & (kWarpP - 1));
+  warp_out(w.s_x)[i] = info.out0;
+  warp_labels(w.s_x)[i] = info.labels4;
+}
+
+// The CE, class and counts of this lane's output pixel of row `Half`
+// (position t of pixel p = g + 8*Half of the warp's 16 in the tile of row
+// `buf`), from its logits in the accumulators; the class map is written
+// by the kw = 0 lane of each pair.  Every lane of the warp calls it (a
+// shuffle).  The CE is taken for every pixel and added where it is valid
+// (adding 0.0 leaves the sum's bits as skipping would), so a lane's two
+// pixels interleave.
+template <int Half, typename T>
+__device__ __forceinline__ void tally(EvalWalk<T>& w, float (&acc)[kNT][4], int buf, int p, int t) {
+  const bool active = w.p0 + p < w.npix;
+  const int lab = (warp_labels(w.s_x)[buf * kWarpP + p] >> (8 * t)) & 0xff;
+  const dsrl_tail::LaneRow<Half> l = dsrl_tail::lane_logits<Half>(acc, w.s_b);
   const float m = dsrl_tail::row_max(l);
   const int cls = dsrl_tail::first_max(l, m);
-  const bool valid = active && lab != ignore_label;
+  const float picked = dsrl_tail::picked_logit(l, lab);
+  const bool valid = active && lab != w.ignore_label;
   const bool hit = valid && cls == lab;
-  if (valid) {
-    const float picked = dsrl_tail::picked_logit(l, lab);
-    ce += (double)dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);
-  }
-  n_valid += valid;
-  n_correct += hit;
+  const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);
+  w.ce += valid ? (double)nll : 0.0;
+  int* hist = warp_bins(w.s_x);
   if (valid) atomicAdd(&hist[cls], 1);
   if (hit) atomicAdd(&hist[kC + cls], 1);
   if (active && lab < kC) atomicAdd(&hist[2 * kC + lab], 1);
   const int right = __shfl_down_sync(0xffffffffu, cls, 1);   // kw = 1 of the same row
   if (!(t & 1) && active)
-    *reinterpret_cast<uchar2*>(pred + s_out[cur * kWarpP + p] + (t >> 1) * out_w) =
+    *reinterpret_cast<uchar2*>(w.pred + warp_out(w.s_x)[buf * kWarpP + p] + (t >> 1) * 2LL * w.width) =
         make_uchar2((uint8_t)cls, (uint8_t)right);
+}
+
+// One step of the walk: the slab of tile `w.tile` has been requested two
+// steps before.  Issues the tile's products, starts loading the slab two
+// tiles ahead into the buffer just read and keeps the next tile's pixels
+// while the tensor cores run, waits for the products and tallies the
+// tile.  Returns whether a next tile exists.
+template <typename T>
+__device__ __forceinline__ bool eval_step(EvalWalk<T>& w, dsrl_tail::WgA<T>& a, float (&acc)[kNT][4],
+                                          uint64_t desc) {
+  const bool more = w.tile + w.groups < w.ntiles;
+  const int cur = w.it & 1;
+  T* slab = w.s_x + cur * kSlabElems;
+  dsrl_tail::cp_async_wait<1>();
+  __syncwarp();      // this tile's slab and pixels are in place
+  dsrl_tail::load_wg_a<T>(slab, w.lane, a);
+  __syncwarp();      // every lane has read the slab
+  dsrl_tail::wg_fence();
+  dsrl_tail::issue_logits_wgmma<T>(acc, a, desc);
+  dsrl_tail::wg_commit();
+  dsrl_tail::wg_fence_acc(acc);
+  // The plane size as if new each step: ptxas otherwise hoists the slab
+  // loads' 64-bit channel offsets (ci * hw) out of the walk and, at 128
+  // registers (float32 x), spills them.
+  asm volatile("" : "+r"(w.hw));
+  if (w.tile + 2 * w.groups < w.ntiles) dsrl_tail::load_slab(w, slab, 2);
+  dsrl_tail::cp_async_commit();
+  keep_pixel(w, cur ^ 1, dsrl_tail::walk_pixel(w, 1));
+  const int g = w.lane >> 2, t = w.lane & 3;
+  dsrl_tail::wg_wait<0>();
+  dsrl_tail::wg_fence_acc(acc);
+  tally<0>(w, acc, cur, g, t);
+  tally<1>(w, acc, cur, g + 8, t);
+  dsrl_tail::advance_walk(w, 0u);   // the labels are in shared memory
+  return more;
 }
 
 // counts layout: [area_pred(C), area_inter(C), area_target(C), correct, valid]
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(EvalShape<T>::kThreads, 1)
 eval_tail_kernel(const T* __restrict__ x, const float* __restrict__ weight,
                  const float* __restrict__ bias, const uint8_t* __restrict__ labels,
                  uint8_t* __restrict__ pred, double* __restrict__ ce_partials,
                  unsigned long long* __restrict__ counts,
                  int height, int width, long long npix, int ignore_label) {
   using S = EvalSmem<T>;
+  constexpr int kWarps = EvalShape<T>::kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_ce[kWarps];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // This warp's slabs, logits, labels and class-map offsets.
-  T* s_x = reinterpret_cast<T*>(smem + warp * 2 * S::kSlab);
-  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem + S::kX);    // logits' B table
-  float* s_b = reinterpret_cast<float*>(smem + S::kX + S::kW);
-  uint32_t* s_lab = reinterpret_cast<uint32_t*>(smem + S::kX + S::kW + S::kB) + warp * 2 * kWarpP;
-  long long* s_out = reinterpret_cast<long long*>(smem + S::kX + S::kW + S::kB + S::kLab) +
-                     warp * 2 * kWarpP;
-  int* hist = reinterpret_cast<int*>(smem + S::kX + S::kW + S::kB + S::kLab + S::kOut) +
-              warp * kBins;
+  const int lane = threadIdx.x & 31;
+  // Shuffled from lane 0, so the compiler sees it uniform over the warp.
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  uint32_t* s_wb = reinterpret_cast<uint32_t*>(smem);
+  float* s_b = reinterpret_cast<float*>(smem + S::kW);
+  unsigned char* s_warps = smem + S::kW + S::kB;   // [warp] WarpSmem
+  dsrl_tail::load_wg_weights<T>(s_wb, s_b, weight, bias);
+  T* s_x = reinterpret_cast<T*>(s_warps + warp * WarpSmem<T>::kBytes);
+  for (int i = lane; i < 3 * kC; i += 32) warp_bins(s_x)[i] = 0;
+  dsrl_tail::wg_fence_proxy();
+  __syncthreads();   // the weights and the zeroed bins
 
-  const unsigned hw = (unsigned)height * (unsigned)width;
-  const long long out_w = 2LL * width;
-  const long long ntiles = (npix + kTileP - 1) / kTileP;
-  const unsigned stride = gridDim.x * kTileP;   // pixels from one of the block's tiles to the next
-
-  dsrl_tail::load_tile_weights<T>(s_wb, s_b, weight, bias);
-  for (int i = lane; i < kBins; i += 32) hist[i] = 0;
-  // Each warp walks its 16-pixel part of the block's tiles on its own: it
-  // loads, multiplies and reduces only its pixels, so after the weights it
-  // meets the other warps only at the end.
-  long long tile = blockIdx.x;
-  long long p0 = tile * kTileP + warp * kWarpP;
-  dsrl_tail::PixelPos pos = dsrl_tail::pixel_pos(p0, hw);
-  dsrl_tail::load_x_part<T>(s_x, x, p0, pos, npix, hw, lane);
-  dsrl_tail::cp_async_commit();
-  if (lane < kWarpP) {
-    const dsrl_tail::PixelInfo info =
-        dsrl_tail::pixel_info(labels, p0 + lane, dsrl_tail::advance(pos, lane, hw), npix, width, hw);
-    s_lab[lane] = info.labels4;
-    s_out[lane] = info.out0;
-  }
-  __syncthreads();   // the weights
-
-  double ce = 0.0;
-  int n_valid = 0, n_correct = 0;
-  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
-    const int cur = it & 1;
-    const bool more = tile + gridDim.x < ntiles;
-    const long long p0_next = p0 + stride;
-    const dsrl_tail::PixelPos pos_next = dsrl_tail::advance(pos, stride, hw);
-    __syncwarp();      // the warp is done with the other buffers (its previous part)
-    if (more) dsrl_tail::load_x_part<T>(s_x + (cur ^ 1) * kC * dsrl_tail::kSlabStride, x, p0_next,
-                                        pos_next, npix, hw, lane);
-    dsrl_tail::cp_async_commit();
-    dsrl_tail::PixelInfo info_next = {0, 0, 0u};
-    if (lane < kWarpP && more)
-      info_next = dsrl_tail::pixel_info(labels, p0_next + lane, dsrl_tail::advance(pos_next, lane, hw),
-                                        npix, width, hw);
-    dsrl_tail::cp_async_wait<1>();
-    __syncwarp();      // this part's slab has landed
-    float acc[dsrl_tail::kNT][4];
-    dsrl_tail::tile_logits_mma<T>(s_x + cur * kC * dsrl_tail::kSlabStride, s_wb, lane, acc);
-    // Lane (g, t) owns output position t (kh = t / 2, kw = t % 2) of pixels
-    // g and g + 8: its logits are in its accumulators.
-    const int g = lane >> 2, t = lane & 3;
-    tally(dsrl_tail::lane_logits<0>(acc, s_b), g, t, cur, p0, npix, ignore_label, s_lab, s_out, out_w,
-          hist, pred, ce, n_valid, n_correct);
-    tally(dsrl_tail::lane_logits<1>(acc, s_b), g + 8, t, cur, p0, npix, ignore_label, s_lab, s_out, out_w,
-          hist, pred, ce, n_valid, n_correct);
-    if (lane < kWarpP && more) {
-      s_lab[(cur ^ 1) * kWarpP + lane] = info_next.labels4;
-      s_out[(cur ^ 1) * kWarpP + lane] = info_next.out0;
+  EvalWalk<T> w;
+  dsrl_tail::init_walk<T>(w, x, labels, s_x, s_b, height, width, npix, ignore_label, EvalShape<T>::kWG, warp,
+                          lane);
+  w.pred = pred;
+  w.ce = 0.0;
+  if (w.tile < w.ntiles) {   // uniform over the warpgroup
+    keep_pixel(w, 0, dsrl_tail::start_walk<T>(w, warp % 4));
+    // A's fragments and the accumulators live across the steps, as in K1.
+    dsrl_tail::WgA<T> a;
+    float acc[kNT][4];
+    const uint64_t desc = dsrl_tail::wg_desc(s_wb);
+    while (eval_step<T>(w, a, acc, desc)) {
     }
-    p0 = p0_next;
-    pos = pos_next;
   }
   dsrl_tail::cp_async_wait<0>();
 
-  const double ce_w = dsrl_tail::warp_sum(ce);
-  const int correct_w = dsrl_tail::warp_sum(n_correct);
-  const int valid_w = dsrl_tail::warp_sum(n_valid);
-  if (lane == 0) {
-    s_ce[warp] = ce_w;
-    atomicAdd(&hist[3 * kC], correct_w);
-    atomicAdd(&hist[3 * kC + 1], valid_w);
-  }
+  const double ce_w = dsrl_tail::warp_sum(w.ce);
+  if (lane == 0) s_ce[warp] = ce_w;
   __syncthreads();
-  const int* s_hist = reinterpret_cast<const int*>(smem + S::kX + S::kW + S::kB + S::kLab + S::kOut);
-  if (tid < kBins) {
-    int v = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += s_hist[w * kBins + tid];
-    if (v) atomicAdd(&counts[tid], (unsigned long long)v);
+  // Each count summed over the warps' bins in a fixed order (integers: any
+  // order is exact): `correct` over the area_inter bins, `valid` over the
+  // area_pred bins; one 64-bit global atomic a count.
+  if (threadIdx.x < kBins) {
+    const int first = threadIdx.x < 3 * kC ? threadIdx.x : threadIdx.x == 3 * kC ? kC : 0;
+    const int n = threadIdx.x < 3 * kC ? 1 : kC;
+    unsigned long long v = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      const int* bins = warp_bins(reinterpret_cast<T*>(s_warps + k * WarpSmem<T>::kBytes));
+      for (int j = 0; j < n; ++j) v += (unsigned long long)bins[first + j];
+    }
+    if (v) atomicAdd(&counts[threadIdx.x], v);
   }
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     double t = 0.0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += s_ce[w];
+    for (int k = 0; k < kWarps; ++k) t += s_ce[k];
     ce_partials[blockIdx.x] = t;
   }
 }
@@ -226,25 +268,9 @@ sum_partials_kernel(const double* __restrict__ partials, long long n, double* __
 
 template <typename T>
 int eval_grid(long long npix, int* grid) {
-  const int smem = EvalSmem<T>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(eval_tail_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(eval_tail_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eval_tail_kernel<T>, kThreads,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long ntiles = (npix + kTileP - 1) / kTileP;
-  const long long full = (long long)sms * per_sm;
-  *grid = (int)(ntiles < full ? ntiles : full);
-  return 0;
+  const long long tiles = (npix + kWgM - 1) / kWgM;
+  return dsrl_tail::persistent_grid(eval_tail_kernel<T>, EvalShape<T>::kThreads, EvalSmem<T>::kBytes,
+                                    (tiles + EvalShape<T>::kWG - 1) / EvalShape<T>::kWG, grid);
 }
 
 template <typename T>
@@ -256,7 +282,7 @@ int launch(const void* x, const float* weight, const float* bias, const uint8_t*
   const int err0 = eval_grid<T>(npix, &expected);
   if (err0) return err0;
   if (grid != expected) return (int)cudaErrorInvalidValue;   // partials sized for another grid
-  eval_tail_kernel<T><<<grid, kThreads, EvalSmem<T>::kBytes, s>>>(
+  eval_tail_kernel<T><<<grid, EvalShape<T>::kThreads, EvalSmem<T>::kBytes, s>>>(
       static_cast<const T*>(x), weight, bias, labels, pred, ce_partials,
       reinterpret_cast<unsigned long long*>(counts), height, width, npix, ignore_label);
   cudaError_t err = cudaGetLastError();

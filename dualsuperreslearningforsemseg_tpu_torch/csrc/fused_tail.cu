@@ -126,7 +126,7 @@ using dsrl_tail::from_float;
 constexpr int kRows = kC + 1;                   // dW's channels and db
 constexpr int kCols = kN;                       // (output position, class)
 constexpr int kFinalThreads = 1024;
-constexpr int kSlabElems = kC * dsrl_tail::kSlabStride;   // a warp's (C, 16) slab (the forward's)
+constexpr int kSlabElems = dsrl_tail::RowSlab<float>::kElems;   // a warp's (C, 16) slab (the forward's)
 
 // The forward's block: one a SM, of as many warpgroups as the registers
 // allow (float32 x: 5 at 96 registers a thread; bfloat16 x, whose A
@@ -190,50 +190,10 @@ __device__ __forceinline__ void block_partial(double ce, int n_valid, double* __
   }
 }
 
-// A warp's walk over its warpgroup's tiles (forward and backward).
-template <typename T> struct TailWalk {
-  const T* x;
-  const uint8_t* labels;
-  T* s_x;                    // the warp's two slabs
-  const float* s_b;
-  long long tile, ntiles, groups, p0, npix;
-  dsrl_tail::PixelPos pos;   // of p0
-  unsigned hw, stride;       // stride: pixels from one of the warpgroup's tiles to the next
-  int width, ignore_label, lane, it;
-  uint32_t labels4;          // lane l: the four labels of pixel p0 + l % 16 of this tile
-};
-
-template <typename T> struct FwdWalk : TailWalk<T> {
+template <typename T> struct FwdWalk : dsrl_tail::TailWalk<T> {
   double ce;
   int n_valid;
 };
-
-// Starts loading this warp's slab of the tile `ahead` tiles after w.tile.
-template <typename T, typename Layout = dsrl_tail::RowSlab<T>>
-__device__ __forceinline__ void load_slab(const TailWalk<T>& w, T* slab, unsigned ahead) {
-  const long long p0 = w.p0 + (long long)ahead * w.stride;
-  const dsrl_tail::PixelPos pos = dsrl_tail::advance(w.pos, ahead * w.stride, w.hw);
-  if (!dsrl_tail::load_x_part_whole<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane))
-    dsrl_tail::load_x_part<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane);
-}
-
-// The four labels of pixel p0 + lane % 16 of the walk's next tile.
-template <typename T>
-__device__ __forceinline__ uint32_t next_labels(const TailWalk<T>& w) {
-  const int pl = w.lane & (kWarpP - 1);
-  return dsrl_tail::pixel_info(w.labels, w.p0 + w.stride + pl, dsrl_tail::advance(w.pos, w.stride + pl, w.hw),
-                               w.npix, w.width, w.hw).labels4;
-}
-
-// Moves the walk to its next tile, whose labels are `labels_next`.
-template <typename T>
-__device__ __forceinline__ void advance_walk(TailWalk<T>& w, uint32_t labels_next) {
-  w.labels4 = labels_next;
-  w.tile += w.groups;
-  w.p0 += w.stride;
-  w.pos = dsrl_tail::advance(w.pos, w.stride, w.hw);
-  ++w.it;
-}
 
 // One step of the walk: the slab of tile `w.tile` has been requested two
 // steps before.  Issues the tile's products, starts loading the slab two
@@ -255,9 +215,9 @@ __device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, fl
   dsrl_tail::issue_logits_wgmma<T>(acc, a, desc);
   dsrl_tail::wg_commit();
   dsrl_tail::wg_fence_acc(acc);
-  if (w.tile + 2 * w.groups < w.ntiles) load_slab(w, slab, 2);
+  if (w.tile + 2 * w.groups < w.ntiles) dsrl_tail::load_slab(w, slab, 2);
   dsrl_tail::cp_async_commit();
-  const uint32_t labels_next = next_labels(w);
+  const uint32_t labels_next = dsrl_tail::walk_pixel(w, 1).labels4;
   const int g = w.lane >> 2, t = w.lane & 3;
   const uint32_t lab0 = __shfl_sync(0xffffffffu, w.labels4, g);
   const uint32_t lab1 = __shfl_sync(0xffffffffu, w.labels4, g + 8);
@@ -265,7 +225,7 @@ __device__ __forceinline__ bool fwd_step(FwdWalk<T>& w, dsrl_tail::WgA<T>& a, fl
   dsrl_tail::wg_fence_acc(acc);
   add_ce<0>(acc, w.s_b, lab0, t, w.p0 + g < w.npix, w.ignore_label, w.ce, w.n_valid);
   add_ce<1>(acc, w.s_b, lab1, t, w.p0 + g + 8 < w.npix, w.ignore_label, w.ce, w.n_valid);
-  advance_walk(w, labels_next);
+  dsrl_tail::advance_walk(w, labels_next);
   return more;
 }
 
@@ -287,33 +247,12 @@ fused_tail_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   __syncthreads();   // the weights
 
   FwdWalk<T> w;
-  w.x = x;
-  w.labels = labels;
-  w.s_x = reinterpret_cast<T*>(smem + S::kW + S::kB) + warp * 2 * kSlabElems;
-  w.s_b = s_b;
-  w.hw = (unsigned)height * (unsigned)width;
-  w.ntiles = (npix + kWgM - 1) / kWgM;
-  w.groups = (long long)gridDim.x * FwdShape<T>::kWG;
-  w.stride = (unsigned)w.groups * kWgM;
-  w.tile = (long long)blockIdx.x * FwdShape<T>::kWG + warp / 4;
-  w.npix = npix;
-  w.width = width;
-  w.ignore_label = ignore_label;
-  w.lane = lane;
-  w.it = 0;
+  dsrl_tail::init_walk<T>(w, x, labels, reinterpret_cast<T*>(smem + S::kW + S::kB) + warp * 2 * kSlabElems,
+                          s_b, height, width, npix, ignore_label, FwdShape<T>::kWG, warp, lane);
   w.ce = 0.0;
   w.n_valid = 0;
   if (w.tile < w.ntiles) {   // uniform over the warpgroup
-    // The slabs of the first two tiles in flight, the first tile's labels.
-    w.p0 = w.tile * kWgM + (warp % 4) * kWarpP;
-    w.pos = dsrl_tail::pixel_pos(w.p0, w.hw);
-    load_slab(w, w.s_x, 0);
-    dsrl_tail::cp_async_commit();
-    if (w.tile + w.groups < w.ntiles) load_slab(w, w.s_x + kSlabElems, 1);
-    dsrl_tail::cp_async_commit();
-    w.labels4 = dsrl_tail::pixel_info(labels, w.p0 + (lane & (kWarpP - 1)),
-                                      dsrl_tail::advance(w.pos, lane & (kWarpP - 1), w.hw), npix, width,
-                                      w.hw).labels4;
+    dsrl_tail::start_walk<T>(w, warp % 4);
     // A's fragments and the accumulators live across the steps: as locals
     // of a step the float32 kernel spills (measured).
     dsrl_tail::WgA<T> a;
@@ -727,7 +666,8 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* d, float a, float b) {
 // size is even (the pair then lies in one sample, aligned), else one store
 // a pixel.
 template <typename T>
-__device__ __forceinline__ void store_dx(const TailWalk<T>& w, T* __restrict__ dx, const float (&dxa)[3][4]) {
+__device__ __forceinline__ void store_dx(const dsrl_tail::TailWalk<T>& w, T* __restrict__ dx,
+                                         const float (&dxa)[3][4]) {
   const int g = w.lane >> 2, t = w.lane & 3;
   const long long p = w.p0 + 2 * g;
   if (p >= w.npix) return;
@@ -758,7 +698,7 @@ __device__ __forceinline__ void store_dx(const TailWalk<T>& w, T* __restrict__ d
   }
 }
 
-template <typename T> struct BwdWalk : TailWalk<T> {
+template <typename T> struct BwdWalk : dsrl_tail::TailWalk<T> {
   T* s_xlo;                 // float32 x: the warp's lo plane
   unsigned char* stage;     // the warpgroup's staged dlogits
   float scale;
@@ -789,7 +729,7 @@ __device__ __forceinline__ bool bwd_step(BwdWalk<T>& w, T* __restrict__ dx, dsrl
   dsrl_tail::issue_logits_wgmma<T>(acc, a, w.desc_w);
   dsrl_tail::wg_commit();
   dsrl_tail::wg_fence_acc(acc);
-  const uint32_t labels_next = next_labels(w);
+  const uint32_t labels_next = dsrl_tail::walk_pixel(w, 1).labels4;
   const int g = w.lane >> 2, t = w.lane & 3;
   const uint32_t lab0 = __shfl_sync(0xffffffffu, w.labels4, 2 * g);
   const uint32_t lab1 = __shfl_sync(0xffffffffu, w.labels4, 2 * g + 1);
@@ -819,9 +759,9 @@ __device__ __forceinline__ bool bwd_step(BwdWalk<T>& w, T* __restrict__ dx, dsrl
   dsrl_tail::wg_wait<0>();
   dsrl_tail::wg_fence_acc(dw[0]);
   named_barrier(w.bar);   // every warp's products are done with the slabs and the staging
-  if (w.tile + 2 * w.groups < w.ntiles) load_slab<T, CoreSlab<T>>(w, slab, 2);
+  if (w.tile + 2 * w.groups < w.ntiles) dsrl_tail::load_slab<T, CoreSlab<T>>(w, slab, 2);
   dsrl_tail::cp_async_commit();
-  advance_walk(w, labels_next);
+  dsrl_tail::advance_walk(w, labels_next);
   return more;
 }
 
@@ -859,23 +799,11 @@ fused_tail_bwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   __syncthreads();   // the tables and the zeroed slabs
 
   BwdWalk<T> w;
-  w.x = x;
-  w.labels = labels;
-  w.s_x = reinterpret_cast<T*>(s_xall + warp * 2 * CoreSlab<T>::kBytes);
+  dsrl_tail::init_walk<T>(w, x, labels, reinterpret_cast<T*>(s_xall + warp * 2 * CoreSlab<T>::kBytes), s_b,
+                          height, width, npix, ignore_label, kWG, warp, lane);
   w.s_xlo = reinterpret_cast<T*>(s_xall + S::kX + warp * CoreSlab<T>::kBytes);
   w.stage = s_stage + wg * DlStage<T>::kBytes;
-  w.s_b = s_b;
   w.scale = *scale_ptr;
-  w.hw = (unsigned)height * (unsigned)width;
-  w.ntiles = (npix + kWgM - 1) / kWgM;
-  w.groups = (long long)gridDim.x * kWG;
-  w.stride = (unsigned)w.groups * kWgM;
-  w.tile = (long long)blockIdx.x * kWG + wg;
-  w.npix = npix;
-  w.width = width;
-  w.ignore_label = ignore_label;
-  w.lane = lane;
-  w.it = 0;
   w.w4 = w4;
   w.bar = 1 + wg;
   w.desc_w = dsrl_tail::wg_desc(s_wb);
@@ -895,15 +823,7 @@ fused_tail_bwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
 #pragma unroll
   for (int co = 0; co < kC; ++co) db[co] = 0.f;
   if (w.tile < w.ntiles) {   // uniform over the warpgroup
-    w.p0 = w.tile * kWgM + w4 * kWarpP;
-    w.pos = dsrl_tail::pixel_pos(w.p0, w.hw);
-    load_slab<T, CoreSlab<T>>(w, w.s_x, 0);
-    dsrl_tail::cp_async_commit();
-    if (w.tile + w.groups < w.ntiles) load_slab<T, CoreSlab<T>>(w, w.s_x + CoreSlab<T>::kElems, 1);
-    dsrl_tail::cp_async_commit();
-    w.labels4 = dsrl_tail::pixel_info(labels, w.p0 + (lane & (kWarpP - 1)),
-                                      dsrl_tail::advance(w.pos, lane & (kWarpP - 1), w.hw), npix, width,
-                                      w.hw).labels4;
+    dsrl_tail::start_walk<T, CoreSlab<T>>(w, w4);
     dsrl_tail::WgA<T> a;
     float acc[kNT][4], dxa[3][4];
     uint32_t lo[sizeof(T) == 4 ? kNT : 1][4], pk[kNPad / 16][4];
@@ -985,31 +905,10 @@ bwd_sum_kernel(const double* __restrict__ partials, int nblocks, float* __restri
   }
 }
 
-// The persistent grid of a tile kernel: the SM count times the blocks the
-// occupancy allows per SM, at most `blocks_needed`.
-template <typename K>
-int persistent_grid(K kernel, int threads, int smem, long long blocks_needed, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long full = (long long)sms * per_sm;
-  *grid = (int)(blocks_needed < full ? blocks_needed : full);
-  return 0;
-}
-
 template <typename T>
 int fwd_grid(long long npix, int* grid) {
   const long long tiles = (npix + kWgM - 1) / kWgM;
-  return persistent_grid(fused_tail_fwd_kernel<T>, FwdShape<T>::kThreads, FwdSmem<T>::kBytes,
+  return dsrl_tail::persistent_grid(fused_tail_fwd_kernel<T>, FwdShape<T>::kThreads, FwdSmem<T>::kBytes,
                          (tiles + FwdShape<T>::kWG - 1) / FwdShape<T>::kWG, grid);
 }
 
@@ -1034,7 +933,7 @@ int launch_fwd(const void* x, const float* weight, const float* bias, const uint
 template <typename T>
 int bwd_grid(long long npix, int* grid) {
   const long long tiles = (npix + kWgM - 1) / kWgM;
-  return persistent_grid(fused_tail_bwd_kernel<T>, BwdShape<T>::kThreads, BwdSmem<T>::kBytes,
+  return dsrl_tail::persistent_grid(fused_tail_bwd_kernel<T>, BwdShape<T>::kThreads, BwdSmem<T>::kBytes,
                          (tiles + BwdShape<T>::kWG - 1) / BwdShape<T>::kWG, grid);
 }
 

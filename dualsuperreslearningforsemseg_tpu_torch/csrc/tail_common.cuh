@@ -15,23 +15,21 @@
 // activation the weight is rounded to bfloat16 for every product; products
 // and sums are float32 and the bias is added in float32.
 //
-// The logits: the consecutive pre-tail pixels of a tile as a (M x 80) =
-// (M x K) . (K x 80) product on the tensor cores, K = the C input channels
-// padded with zeros, with its columns ordered so that each lane ends with
-// whole output pixels in its accumulators (`col_pos`, `col_class`): no
-// shared-memory round trip before the CE.  A float32 activation takes three
-// TF32 passes (3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi);
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, float32 accumulators), which keeps
-// float32 accuracy; a bfloat16 activation one bfloat16 pass, which is the
-// rounding rule above.  Two forms share the A fragments (the mma.sync m16
-// layout of a warp's 16 pixels, built in registers from its (C, 16) slab)
-// and the accumulator layout:
-// * `tile_logits_mma` (`mma.sync`, one warp's 16 pixels, B fragments from
-//   a shared table): K3 (K1 backward takes `mma_3xtf32` / `mma_bf16` for
-//   the last 16 rows of dW^T).
-// * `issue_logits_wgmma` (`wgmma.mma_async`, a warpgroup's 64 pixels, B
-//   read by the tensor cores from a shared table through a matrix
-//   descriptor, asynchronous): K1 forward and backward.
+// The logits: the consecutive pre-tail pixels of a warpgroup's tile as a
+// (64 x 80) = (64 x K) . (K x 80) product on the tensor cores, one chain
+// of sm_90a's asynchronous `wgmma` (`issue_logits_wgmma`), K = the C input
+// channels padded with zeros, with its columns ordered so that each lane
+// ends with whole output pixels in its accumulators (`col_pos`,
+// `col_class`): no shared-memory round trip before the CE.  A float32
+// activation takes three TF32 passes (3xTF32: a = hi + lo with hi =
+// tf32(a), lo = tf32(a - hi); a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, float32
+// accumulators), which keeps float32 accuracy; a bfloat16 activation one
+// bfloat16 pass, which is the rounding rule above.  A comes from registers
+// (the m16 fragments of each warp's 16 pixels, built from its (C, 16)
+// slab), B from the weight table in shared memory, built once a block.
+// All three tail kernels (K3, K1 forward and backward) walk their 64-pixel
+// tiles the same way (`TailWalk`, at the end).  `mma.sync` (`mma_3xtf32`,
+// `mma_bf16`) is left only for K1 backward's dW^T rows 64-79.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,11 +41,7 @@ namespace dsrl_tail {
 constexpr int kC = 19;          // classes (Cityscapes); each wrapper checks it
 constexpr int kN = 4 * kC;      // logits of one pre-tail pixel: 76
 constexpr int kNPad = 80;       // ... padded to whole n8 tiles
-constexpr int kThreads = 256;   // threads of a tile kernel: 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kWarpP = 16;      // pre-tail pixels of a warp's part of a tile (one m16 tile)
-constexpr int kTileP = kWarps * kWarpP;   // pre-tail pixels of a block's tile: 128
-constexpr int kSW = 88;         // logits' B table row stride (words): conflict-free fragments
 constexpr int kNT = kNPad / 8;  // n8 tiles of the logits
 
 // Column n of the logits product is class col_class(n) = 2*(n / 8) + n % 2
@@ -190,68 +184,6 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A B-operand table in shared memory: the (kpad x stride) matrix value(k,
-// n) (zero outside the real entries) in the words the mma fragments read.
-// Float32 x: two planes of TF32 words, hi then lo (3xTF32); bfloat16 x: one
-// plane of bfloat16 pairs, rows (2j, 2j + 1) packed in word j.  Split or
-// rounded once per block, so the tile loops only load.
-template <typename T> __host__ __device__ constexpr int b_table_words(int kpad, int stride) {
-  return sizeof(T) == 4 ? 2 * kpad * stride : kpad / 2 * stride;
-}
-
-template <typename T, typename F>
-__device__ __forceinline__ void fill_b_table(uint32_t* tab, int kpad, int stride, F value) {
-  if constexpr (sizeof(T) == 4) {
-    for (int i = threadIdx.x; i < kpad * stride; i += blockDim.x) {
-      uint32_t hi, lo;
-      split_tf32(value(i / stride, i % stride), hi, lo);
-      tab[i] = hi;
-      tab[kpad * stride + i] = lo;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kpad / 2 * stride; i += blockDim.x) {
-      const int j = i / stride, n = i - j * stride;
-      tab[i] = pack_bf16(value(2 * j, n), value(2 * j + 1, n));
-    }
-  }
-}
-
-// The B fragment (rows k0 + t and + 4 of column n) of a TF32 table.
-__device__ __forceinline__ void b_frag_tf32(const uint32_t* tab, int kpad, int stride, int k0, int n,
-                                            int t, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const int i0 = (k0 + t) * stride + n, i1 = i0 + 4 * stride;
-  hi[0] = tab[i0];
-  hi[1] = tab[i1];
-  lo[0] = tab[kpad * stride + i0];
-  lo[1] = tab[kpad * stride + i1];
-}
-
-// The B fragment (rows k0 + 2t, + 1 and k0 + 2t + 8, + 9 of column n) of a
-// bfloat16 table; k0 is a multiple of 16.
-__device__ __forceinline__ void b_frag_bf16(const uint32_t* tab, int stride, int k0, int n, int t,
-                                            uint32_t (&b)[2]) {
-  const int i0 = (k0 / 2 + t) * stride + n;
-  b[0] = tab[i0];
-  b[1] = tab[i0 + 4 * stride];
-}
-
-// K of the logits product: the C channels padded to whole k8 (TF32) or k16
-// (bfloat16) steps.
-template <typename T> struct LogitsK { static constexpr int kPad = sizeof(T) == 4 ? 24 : 32; };
-
-// The logits' B table (W[ci, col_class(n), col_pos(n)], the weight rounded
-// as the products see it) and s_b[co] = bias[co] (s_b[19] = 0).  The caller
-// synchronises the block afterwards.
-template <typename T>
-__device__ __forceinline__ void load_tile_weights(uint32_t* s_wb, float* s_b, const float* __restrict__ weight,
-                                                  const float* __restrict__ bias) {
-  fill_b_table<T>(s_wb, LogitsK<T>::kPad, kSW, [&](int ci, int n) {
-    const int co = col_class(n);
-    return ci < kC && co < kC ? weight[(ci * kC + co) * 4 + col_pos(n)] : 0.f;
-  });
-  for (int co = threadIdx.x; co < kC + 1; co += blockDim.x) s_b[co] = co < kC ? bias[co] : 0.f;
-}
-
 // Where pre-tail pixel p lies: sample b, offset rem < hw in its planes.
 // The kernels keep hw < 2^31 and step by less than 2^31 pixels, so a step
 // is a 32-bit division.
@@ -279,8 +211,10 @@ __device__ __forceinline__ PixelPos advance(PixelPos s, unsigned d, unsigned hw)
 // fragment loads hit distinct banks; rows stay 16-byte aligned).  K3 and
 // K1 forward; K1 backward keeps its slabs in the tensor cores' layout
 // (fused_tail.cu).  Every layout keeps the 16 bytes of one channel's
-// pixels [16c / size, 16(c + 1) / size) together.
+// pixels [16c / size, 16(c + 1) / size) together, and says how many
+// elements one slab takes (`kElems`).
 template <typename T> struct RowSlab {
+  static constexpr int kElems = kC * kSlabStride;
   static __host__ __device__ constexpr int off(int ci, int p) { return ci * kSlabStride + p; }
 };
 
@@ -319,7 +253,7 @@ __device__ __forceinline__ void load_x_part(T* slab, const T* __restrict__ x, lo
 // The common case of `load_x_part`, uniform over the warp: when the part
 // lies in one sample and every channel's 16 pixels are whole aligned
 // 16-byte chunks, starts their cp.async copies without per-chunk position
-// checks and returns true; else loads nothing and returns false (K1).
+// checks and returns true; else loads nothing and returns false.
 template <typename T, typename Layout = RowSlab<T>>
 __device__ __forceinline__ bool load_x_part_whole(T* slab, const T* __restrict__ x, long long p0, PixelPos pos0,
                                                   long long npix, unsigned hw, int lane) {
@@ -337,22 +271,21 @@ __device__ __forceinline__ bool load_x_part_whole(T* slab, const T* __restrict__
 }
 
 // Where pre-tail pixel p (at `pos`) lives: its first label byte (the 2x2
-// output block's top-left), the offset of its channel 0 in x, and its four
+// output block's top-left, also its first class-map byte) and its four
 // labels (byte kh*2 + kw of `labels4`, read as two 2-byte pairs).  Pixels
-// >= npix get labels 0 and offsets 0; every caller masks them.
+// >= npix get labels 0 and offset 0; every caller masks them.
 struct PixelInfo {
-  long long out0, xoff;
+  long long out0;
   uint32_t labels4;
 };
 
 __device__ __forceinline__ PixelInfo pixel_info(const uint8_t* __restrict__ labels, long long p,
                                                 PixelPos pos, long long npix, int width,
                                                 unsigned hw) {
-  PixelInfo info = {0, 0, 0u};
+  PixelInfo info = {0, 0u};
   if (p < npix) {
     const unsigned h = pos.rem / (unsigned)width, w = pos.rem - h * (unsigned)width;
     info.out0 = pos.b * 4 * (long long)hw + 2LL * h * (2LL * width) + 2LL * w;
-    info.xoff = pos.b * kC * (long long)hw + pos.rem;
     const uint32_t row0 = *reinterpret_cast<const uint16_t*>(labels + info.out0);
     const uint32_t row1 = *reinterpret_cast<const uint16_t*>(labels + info.out0 + 2LL * width);
     info.labels4 = row0 | (row1 << 16);
@@ -390,46 +323,6 @@ __device__ __forceinline__ void a_frag_bf16(const T* slab, int k0, int lane, uin
   a[1] = pack_bf16(slab_at(slab, c0, g + 8), slab_at(slab, c0 + 1, g + 8));
   a[2] = pack_bf16(slab_at(slab, c1, g), slab_at(slab, c1 + 1, g));
   a[3] = pack_bf16(slab_at(slab, c1, g + 8), slab_at(slab, c1 + 1, g + 8));
-}
-
-// The bias-free logits of a warp's 16 pixels (rows g and g + 8 of its
-// slab) in the m16n8 accumulator layout: acc[nt][0..1] = row g, columns
-// nt*8 + 2t + {0, 1}; acc[nt][2..3] = row g + 8.  s_wb is the logits' B
-// table.
-template <typename T>
-__device__ __forceinline__ void tile_logits_mma(const T* slab, const uint32_t* s_wb, int lane,
-                                                float (&acc)[kNT][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int kK = LogitsK<T>::kPad;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int k0 = 0; k0 < kK; k0 += 8) {
-      uint32_t a_hi[4], a_lo[4];
-      a_frag_tf32(slab, k0, lane, a_hi, a_lo);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t b_hi[2], b_lo[2];
-        b_frag_tf32(s_wb, kK, kSW, k0, nt * 8 + g, t, b_hi, b_lo);
-        mma_3xtf32(acc[nt], a_hi, a_lo, b_hi, b_lo);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < kK; k0 += 16) {
-      uint32_t a[4];
-      a_frag_bf16(slab, k0, lane, a);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t b[2];
-        b_frag_bf16(s_wb, kSW, k0, nt * 8 + g, t, b);
-        mma_bf16(acc[nt], a, b);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- warpgroup tensor cores
@@ -616,6 +509,122 @@ __device__ __forceinline__ LaneRow<Half> lane_logits(float (&acc)[kNT][4], const
 #pragma unroll
   for (int co = 0; co < kC; ++co) l[co] += s_b[co];
   return l;
+}
+
+// ---------------------------------------------------------------- the warpgroup walk
+
+// The walk of the three tail kernels over their tiles.  A persistent grid,
+// one block an SM of `wgs` warpgroups (`persistent_grid`), walks tiles of
+// kWgM = 64 consecutive pre-tail pixels, warpgroup i of the grid taking
+// tiles i, i + all warpgroups, ...  Each warp of a warpgroup owns 16
+// pixels of its tiles: it loads their (C, 16) slab (laid out by `Layout`)
+// with cp.async two tiles ahead into a ring of two buffers, and their
+// labels one tile ahead into registers (lanes l and l + 16 hold pixel l;
+// a kernel shuffles them to the lanes that need them).  A kernel's step
+// waits for its slab, issues the tile's products, requests the slab two
+// tiles ahead into the buffer just read (`load_slab`), reads the next
+// tile's pixels (`walk_pixel`) while the tensor cores run, finishes the
+// tile and moves on (`advance_walk`).  The tile indices are uniform over
+// the warpgroup (derived from a warp index shuffled from lane 0), so no
+// wgmma sits in a branch the compiler cannot prove uniform.
+template <typename T> struct TailWalk {
+  const T* x;
+  const uint8_t* labels;
+  T* s_x;                    // the warp's two slabs
+  const float* s_b;
+  long long tile, ntiles, groups, p0, npix;
+  PixelPos pos;              // of p0
+  unsigned hw, stride;       // stride: pixels from one of the warpgroup's tiles to the next
+  int width, ignore_label, lane, it;
+  uint32_t labels4;          // lane l: the four labels of pixel p0 + l % 16 of this tile
+};
+
+// Sets a warp's walk at its warpgroup's first tile; `warp` is the warp's
+// index in a block of `wgs` warpgroups.
+template <typename T>
+__device__ __forceinline__ void init_walk(TailWalk<T>& w, const T* x, const uint8_t* labels, T* s_x,
+                                          const float* s_b, int height, int width, long long npix,
+                                          int ignore_label, int wgs, int warp, int lane) {
+  w.x = x;
+  w.labels = labels;
+  w.s_x = s_x;
+  w.s_b = s_b;
+  w.hw = (unsigned)height * (unsigned)width;
+  w.ntiles = (npix + kWgM - 1) / kWgM;
+  w.groups = (long long)gridDim.x * wgs;
+  w.stride = (unsigned)w.groups * kWgM;
+  w.tile = (long long)blockIdx.x * wgs + warp / 4;
+  w.npix = npix;
+  w.width = width;
+  w.ignore_label = ignore_label;
+  w.lane = lane;
+  w.it = 0;
+}
+
+// Starts loading this warp's slab of the tile `ahead` tiles after w.tile.
+template <typename T, typename Layout = RowSlab<T>>
+__device__ __forceinline__ void load_slab(const TailWalk<T>& w, T* slab, unsigned ahead) {
+  const long long p0 = w.p0 + (long long)ahead * w.stride;
+  const PixelPos pos = advance(w.pos, ahead * w.stride, w.hw);
+  if (!load_x_part_whole<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane))
+    load_x_part<T, Layout>(slab, w.x, p0, pos, w.npix, w.hw, w.lane);
+}
+
+// Pixel p0 + lane % 16 (labels, class-map offset) of the tile `ahead`
+// tiles after w.tile.
+template <typename T>
+__device__ __forceinline__ PixelInfo walk_pixel(const TailWalk<T>& w, unsigned ahead) {
+  const int pl = w.lane & (kWarpP - 1);
+  return pixel_info(w.labels, w.p0 + (long long)ahead * w.stride + pl,
+                    advance(w.pos, ahead * w.stride + pl, w.hw), w.npix, w.width, w.hw);
+}
+
+// For a warpgroup that has a first tile (w.tile < w.ntiles): sets the
+// warp's first pixel (w4: the warp's index in its warpgroup), requests the
+// slabs of its first two tiles (two cp.async groups, the second empty
+// without a second tile) and reads the first tile's pixels.
+template <typename T, typename Layout = RowSlab<T>>
+__device__ __forceinline__ PixelInfo start_walk(TailWalk<T>& w, int w4) {
+  w.p0 = w.tile * kWgM + w4 * kWarpP;
+  w.pos = pixel_pos(w.p0, w.hw);
+  load_slab<T, Layout>(w, w.s_x, 0);
+  cp_async_commit();
+  if (w.tile + w.groups < w.ntiles) load_slab<T, Layout>(w, w.s_x + Layout::kElems, 1);
+  cp_async_commit();
+  const PixelInfo first = walk_pixel(w, 0);
+  w.labels4 = first.labels4;
+  return first;
+}
+
+// Moves the walk to its next tile, whose labels are `labels_next`.
+template <typename T>
+__device__ __forceinline__ void advance_walk(TailWalk<T>& w, uint32_t labels_next) {
+  w.labels4 = labels_next;
+  w.tile += w.groups;
+  w.p0 += w.stride;
+  w.pos = advance(w.pos, w.stride, w.hw);
+  ++w.it;
+}
+
+// The persistent grid of a tile kernel: the SM count times the blocks the
+// occupancy allows per SM, at most `blocks_needed`.
+template <typename K>
+int persistent_grid(K kernel, int threads, int smem, long long blocks_needed, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long full = (long long)sms * per_sm;
+  *grid = (int)(blocks_needed < full ? blocks_needed : full);
+  return 0;
 }
 
 }  // namespace dsrl_tail

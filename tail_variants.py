@@ -13,12 +13,14 @@ with CUDA events at the main path's shapes, x (16, 19, 256, 512) for K3 and
 (8, 19, 256, 512) for K1, float32 and bfloat16: a call from the host, and
 the same launches replayed from a CUDA graph (device time).  A variant's
 results are wrong by construction: only its time means something, next to
-the unchanged build's from the same run.  ``--parent DIR`` also builds the
-``fused_tail.cu`` of another checkout (e.g. the parent commit unpacked with
-``git archive``) and times its forward and backward in turns with this
-checkout's unchanged build, parent, this, this, parent (the first two
-before all the variants, the last two after them), so the two are
-compared on one card in one run.  Prints each build's ``-Xptxas -v``
+the unchanged build's from the same run; each variant is built only for
+the kernels whose sources it edits (both for an edit of the shared
+header).  ``--parent DIR`` also builds the ``eval_tail.cu`` and
+``fused_tail.cu`` of another checkout (e.g. the parent commit unpacked
+with ``git archive``) and times its K3 and its K1 forward and backward in
+turns with this checkout's unchanged build, parent, this, this, parent
+(the first two before all the variants, the last two after them), so the
+two are compared on one card in one run.  Prints each build's ``-Xptxas -v``
 summary, one line per timing, then the card's name and power limit and a
 JSON object of all the timings.
 
@@ -45,7 +47,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 ATOMICS = ('  if (valid) atomicAdd(&hist[cls], 1);\n  if (hit) atomicAdd(&hist[kC + cls], 1);\n'
            '  if (active && lab < kC) atomicAdd(&hist[2 * kC + lab], 1);\n')
-LAUNCH_BOUNDS = '__global__ void __launch_bounds__(kThreads, 2)'
+CLASS_MAP_STORE = ('  if (!(t & 1) && active)\n'
+                   '    *reinterpret_cast<uchar2*>(w.pred + warp_out(w.s_x)[buf * kWarpP + p] + (t >> 1) * 2LL * '
+                   'w.width) =\n        make_uchar2((uint8_t)cls, (uint8_t)right);\n')
+EVAL_SHAPE = 'static constexpr int kWG = sizeof(T) == 4 ? 4 : 6;'
 BWD_DX = '  issue_dx_wgmma<T>(dxa, acc, lo, pk, w.desc_wt);\n'
 BWD_DW = '  issue_dw_wgmma<T>(dw[0], w.desc_stage, w.desc_slab, w.desc_lo, buf);\n'
 BWD_DW_TAIL = '  tail_rows_dw<T>(dw[1], w.stage, slab, w.s_xlo, w.w4, w.lane);\n'
@@ -54,7 +59,7 @@ BWD_DX_3XTF32 = ('      wgmma_n24_tf32(dxa, lo_a, hi_b, nt > 0);\n      wgmma_n2
 BWD_DW_3XTF32 = ('      wgmma_n24_ss<T>(dw, a_lo, b_hi);\n      wgmma_n24_ss<T>(dw, a_hi, b_lo);\n'
                  '      wgmma_n24_ss<T>(dw, a_hi, b_hi);\n')
 BWD_SHAPE = 'static constexpr int kWG = sizeof(T) == 4 ? 3 : 4;'
-FWD_CE = 'const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);'
+CE_NLL = 'const float nll = dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);'   # K3 and K1 forward
 WG_3XTF32 = ('      wgmma_tf32(d, a.lo[s], hi, s > 0);\n      wgmma_tf32(d, a.hi[s], lo, 1);\n'
              '      wgmma_tf32(d, a.hi[s], hi, 1);\n')
 FWD_SHAPE = 'static constexpr int kWG = sizeof(T) == 4 ? 5 : 6;'
@@ -68,17 +73,19 @@ VARIANTS = {
         'fused_tail.cu': [(BWD_DX_3XTF32, '      wgmma_n24_tf32(dxa, hi_a, hi_b, nt > 0);\n'),
                           (BWD_DW_3XTF32, '      wgmma_n24_ss<T>(dw, a_hi, b_hi);\n')]},
     'no_logits_mma': {'tail_common.cuh': [
-        ('mma_3xtf32(acc[nt], a_hi, a_lo, b_hi, b_lo);', 'acc[nt][0] += __uint_as_float(b_hi[0] ^ a_lo[0]);'),
-        ('mma_bf16(acc[nt], a, b);', 'acc[nt][0] += __uint_as_float(b[0] ^ a[0]);'),
         (WG_3XTF32, '      d[s][0] += __uint_as_float(a.hi[s][0] ^ a.lo[s][0]);\n'),
         ('      wgmma_bf16(d, a.hi[s], hi, s > 0);', '      d[s][0] += __uint_as_float(a.hi[s][0]);')]},
     'no_exp': {
-        'eval_tail.cu': [('ce += (double)dsrl_tail::ce_nll(m, dsrl_tail::exp_sum(l, m), picked);',
-                          'ce += (double)(m - picked);')],
+        'eval_tail.cu': [(CE_NLL, 'const float nll = m - picked;')],
         'fused_tail.cu': [('const float inv_z = 1.f / dsrl_tail::exp_sum(l, dsrl_tail::row_max(l));',
                            'const float inv_z = 1.f / (1.f + l[3]);'),
-                          (FWD_CE, 'const float nll = m - picked;')]},
+                          (CE_NLL, 'const float nll = m - picked;')]},
+    # K3 only: without its three histogram atomics, without its class-map
+    # stores, one warpgroup a block fewer or more (float32 x / bfloat16 x).
     'no_histograms': {'eval_tail.cu': [(ATOMICS, '')]},
+    'no_class_map_stores': {'eval_tail.cu': [(CLASS_MAP_STORE, '')]},
+    'eval_warpgroups_3_5': {'eval_tail.cu': [(EVAL_SHAPE, EVAL_SHAPE.replace('4 : 6', '3 : 5'))]},
+    'eval_warpgroups_5_7': {'eval_tail.cu': [(EVAL_SHAPE, EVAL_SHAPE.replace('4 : 6', '5 : 7'))]},
     'no_async_loads': {'tail_common.cuh': [
         ('      cp_async16(dst, src);\n', '      dst[0] = from_float<T>(0.f);\n'),
         ('    cp_async16(slab + Layout::off(ci, c * V), part + ci * (long long)hw + c * V);\n',
@@ -88,8 +95,6 @@ VARIANTS = {
     'no_dx': {'fused_tail.cu': [(BWD_DX, '')]},
     'no_dw': {'fused_tail.cu': [(BWD_DW, '')]},
     'no_dw_rows_64_79': {'fused_tail.cu': [(BWD_DW_TAIL, '')]},
-    'three_blocks_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '3)'))]},
-    'one_block_per_sm': {'eval_tail.cu': [(LAUNCH_BOUNDS, LAUNCH_BOUNDS.replace('2)', '1)'))]},
     # K1 forward only: one warpgroup a block fewer or more (float32 x / bfloat16 x).
     'fwd_warpgroups_4_5': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '4 : 5'))]},
     'fwd_warpgroups_6_7': {'fused_tail.cu': [(FWD_SHAPE, FWD_SHAPE.replace('5 : 6', '6 : 7'))]},
@@ -99,8 +104,16 @@ VARIANTS = {
     'bwd_warpgroups_3': {'fused_tail.cu': [(BWD_SHAPE, BWD_SHAPE.replace('sizeof(T) == 4 ? 3 : 4', '3'))]},
 }
 FWD_ONLY = tuple(name for name in VARIANTS if name.startswith('fwd_'))
-K1_ONLY = FWD_ONLY + ('no_dx', 'no_dw', 'no_dw_rows_64_79', 'bwd_warpgroups_2', 'bwd_warpgroups_3')
 KERNELS = ('eval_tail', 'fused_tail')
+
+
+def kernels_of(name):
+    """The kernels a variant changes: those whose source it edits, both
+    for an edit of the shared header (or none, as built)."""
+    edited = VARIANTS[name]
+    if not edited or 'tail_common.cuh' in edited:
+        return KERNELS
+    return tuple(k for k in KERNELS if k + '.cu' in edited)
 
 
 def edited_sources(csrc, out):
@@ -315,8 +328,8 @@ def main():
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--parent', help="a checkout whose K1 forward and backward (with --k4: "
-                                         "K4) are timed beside this one's")
+    parser.add_argument('--parent', help="a checkout whose K3 and K1 forward and backward (with "
+                                         "--k4: K4) are timed beside this one's")
     parser.add_argument('--k4', action='store_true', help="time K4 instead of the tail kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -342,12 +355,13 @@ def main():
     dirs = edited_sources(_build.CSRC_DIR, out)
     procs = {}
     for name, d in dirs.items():
-        for kern in (('fused_tail',) if name in K1_ONLY else KERNELS):
+        for kern in kernels_of(name):
             procs[(name, kern)] = start_build(d, kern, os.path.join(d, kern + '.so'))
     if args.parent:
-        procs[('parent', 'fused_tail')] = start_build(
-            os.path.join(os.path.abspath(args.parent), 'dualsuperreslearningforsemseg_tpu_torch', 'csrc'),
-            'fused_tail', os.path.join(out, 'parent_fused_tail.so'))
+        for kern in KERNELS:
+            procs[('parent', kern)] = start_build(
+                os.path.join(os.path.abspath(args.parent), 'dualsuperreslearningforsemseg_tpu_torch', 'csrc'),
+                kern, os.path.join(out, 'parent_{}.so'.format(kern)))
     libs = {}
     for (name, kern), (proc, so) in procs.items():
         log, _ = proc.communicate()
@@ -431,23 +445,11 @@ def main():
                                                 partials.data_ptr(), grid, dw.data_ptr(), db.data_ptr(),
                                                 b, h, w, 255, stream), grid)
 
-    def parent_and_this(when):
-        """The parent's K1 and this build's, in this order 'first' and in
-        the other 'last': parent, this, this, parent."""
-        turns = [('parent', 'parent ({})'.format(when)), ('as_built', 'as_built ({})'.format(when))]
-        for name, label in (turns if when == 'first' else turns[::-1]):
-            if (name, 'fused_tail') in libs:
-                time_k1(libs[(name, 'fused_tail')], label)
-
-    parent_and_this('first')
-    for (name, kern), lib in sorted(libs.items()):
-        if name == 'parent' or (name, kern) == ('as_built', 'fused_tail'):
-            continue
-        if kern == 'fused_tail':
-            time_k1(lib, name, backward=name not in FWD_ONLY)
-            continue
+    def time_k3(lib, label):
+        """K3 of one build, both dtypes (its counts add up over the calls:
+        only the time means something here)."""
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            suffix = '{} {}'.format(name, str(dtype).replace('torch.', ''))
+            suffix = '{} {}'.format(label, str(dtype).replace('torch.', ''))
             x, labels = x3.to(dtype), labels3
             b, _, h, w = x.shape
             grid = grid_of(lib.dsrl_eval_tail_grid, code, b * h * w)
@@ -460,6 +462,25 @@ def main():
             timed('K3 ' + suffix, fn, (code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                                        labels.data_ptr(), pred.data_ptr(), partials.data_ptr(), grid,
                                        ce.data_ptr(), counts.data_ptr(), b, h, w, 255, stream), grid)
+
+    def parent_and_this(when):
+        """The parent's K3 and K1 and this build's, in this order 'first'
+        and in the other 'last': parent, this, this, parent."""
+        turns = [('parent', 'parent ({})'.format(when)), ('as_built', 'as_built ({})'.format(when))]
+        for name, label in (turns if when == 'first' else turns[::-1]):
+            if (name, 'eval_tail') in libs:
+                time_k3(libs[(name, 'eval_tail')], label)
+            if (name, 'fused_tail') in libs:
+                time_k1(libs[(name, 'fused_tail')], label)
+
+    parent_and_this('first')
+    for (name, kern), lib in sorted(libs.items()):
+        if name in ('parent', 'as_built'):
+            continue
+        if kern == 'fused_tail':
+            time_k1(lib, name, backward=name not in FWD_ONLY)
+        else:
+            time_k3(lib, name)
     parent_and_this('last')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60).stdout.strip()

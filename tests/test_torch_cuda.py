@@ -229,20 +229,27 @@ def test_fused_tail_all_ignored(cuda):
 
 
 TILE_SHAPES = [(1, 1, 1), (1, 8, 40), (3, 97, 201)]
+# The 64-pixel tiles' edges: a tile that crosses image rows and samples, odd
+# plane sizes, a batch that ends inside a warp's 16 pixels, whole tiles.
+EDGE_TILE_SHAPES = TILE_SHAPES + [(1, 3, 21), (1, 5, 13), (3, 7, 9), (2, 64, 128)]
 
 
-@pytest.mark.parametrize('shape', TILE_SHAPES)
+@pytest.mark.parametrize('shape', EDGE_TILE_SHAPES)
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_eval_tail_tiles(cuda, shape, dtype):
     rng = np.random.default_rng(13)
     x, weight, bias, labels = _exact_case(rng, *shape, cuda)   # exact in bfloat16 too
     x = x.to(getattr(torch, dtype))
     got = eval_tail(x, weight, bias, labels)
+    again = eval_tail(x, weight, bias, labels)
     torch.cuda.synchronize()
     _assert_same(got, eval_tail_plain(x, weight, bias, labels))
+    # Two launches on the same inputs: the same class map, CE and counts, bit for bit.
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[2] + got[3], again[2] + again[3]))
 
 
-@pytest.mark.parametrize('shape', TILE_SHAPES + [(1, 3, 21), (1, 5, 13), (3, 7, 9), (2, 64, 128)])
+@pytest.mark.parametrize('shape', EDGE_TILE_SHAPES)
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_fused_tail_backward_tiles(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(14)
