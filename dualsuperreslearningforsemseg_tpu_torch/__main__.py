@@ -32,7 +32,9 @@ process, the device mapped alike, and exits with the child's code.
 through the same ``tqdm``-safe override without a log file.  ``--profile``
 (``train``, ``test``) runs the command under ``torch.profiler`` and writes
 a Chrome trace into ``outputs/profile``: ``profiling.json``, or under
-``--distributed`` one ``profiling_rank{r}.json`` for each rank r.  ``compile-model`` writes a
+``--distributed`` one ``profiling_rank{r}.json`` for each rank r; the
+trace carries the program's spans (utils/spans.py: ``data.warp``,
+``train.forward``, ``test.readback`` ...) as named host ranges.  ``compile-model`` writes a
 ``torch.export`` program (``.pt2``), not the JAX package's StableHLO, and
 takes ``--device`` (the JAX command exports for its environment's
 backend).  ``purge-weights-logs`` deletes ``weights/stage{k}`` and
@@ -79,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     train_parser.add_argument('--distributed', required=False, nargs=7, metavar=_DISTRIBUTED_METAVAR, const=settings.SUPPORTED_DISTRIBUTED_BACKENDS, action=ValidateDistributedTrainingOptions, help="Multi-process training: one process per device, NODES x DEVICES_PER_NODE ranks (gloo, nccl or mpi; xla maps to the device's default)")
     train_parser.add_argument('--mixed-precision', default=settings.DEFAULT_AMP_OPTIMIZATION_OPTION, type=str.upper, choices=[x for x in settings.AMP_OPTIMIZATION_OPTIONS if x], help="bf16 autocast with float32 parameters; apex opt-level strings (O0-O3) are accepted and mapped")
     train_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
-    train_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
+    train_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile, with the program's spans)")
     train_parser.add_argument('--num-workers', default=settings.DEFAULT_NUM_WORKERS, type=int, help="Worker processes decoding input batches")
     train_parser.add_argument('--dataset', required=True, type=str.casefold, choices=settings.DATASETS.keys(), help="Registered dataset to train on")
     train_parser.add_argument('--val-interval', default=settings.DEFAULT_VAL_INTERVAL, type=int, help="Run validation every N epochs")
@@ -121,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     test_parser.add_argument('--weights', required=True, type=str, help="Trained .checkpoint/.weights file (or the program compile-model wrote, with --compiled-model)")
     test_parser.add_argument('--device', default=settings.DEFAULT_DEVICE, type=str.casefold, choices=settings.SUPPORTED_DEVICES, help="Device the model runs on (cuda or cpu)")
     test_parser.add_argument('--disable-cudnn-benchmark', action='store_true', help="Do not let cuDNN time its convolution algorithms")
-    test_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile)")
+    test_parser.add_argument('--profile', action='store_true', help="Profile the run with torch.profiler (a Chrome trace under outputs/profile, with the program's spans)")
     test_parser.add_argument('--compiled-model', action='store_true', help="Treat --weights as the .pt2 program produced by compile-model")
     test_parser.add_argument('--show', action='store_true', help="Open each visualization in the system image viewer after saving it")
     test_parser.add_argument('--no-interactive', action='store_true', help="In dataset mode, do not pause for ENTER between images")
@@ -374,7 +376,9 @@ def _run_profiled(kwargs):
     """``_run``, under ``torch.profiler`` with ``--profile``, on every rank
     as the JAX CLI traces every process (main.py:364-366): one process
     writes ``PROFILING_FILE``, rank r of ``--distributed`` training
-    ``PROFILING_RANK_FILE``, both under ``PROFILING_DIR``."""
+    ``PROFILING_RANK_FILE``, both under ``PROFILING_DIR``.  Every span the
+    program opens meanwhile (utils/spans.py) shows in the trace as a
+    ``record_function`` range of its name."""
     if kwargs.get('dataset'):
         # NAME (split 'train'), [NAME, SPLIT] or [NAME, SPLIT, START_INDEX]
         # -> the registry entry (parity: main.py:58-70).

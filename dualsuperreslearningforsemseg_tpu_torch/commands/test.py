@@ -29,7 +29,7 @@ from ..metrics.device import argmax_lastdim
 from ..models import DSRL, load_state_dict
 from ..ops.colorize import make_input_output_visualization
 from ..utils import (INFO, timethis, getFilesWithExtension, swapTupleValues,
-                     select_device)
+                     select_device, span)
 
 
 def load_model(weights, num_classes, device):
@@ -67,11 +67,16 @@ def network_input(img_u8: np.ndarray, ds_settings, device) -> torch.Tensor:
 def _build_pipeline(forward, ds_settings, device):
     """fn(uint8 (H, W, 3) image at MODEL_OUTPUT_SIZE) -> uint8 (H, W) class
     map: uint8 crosses to the device and back, all per-pixel math runs
-    there."""
+    there.  Its three parts are the spans ``test.input``, ``test.forward``
+    and ``test.readback``."""
     def pipeline(img_u8: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            logits = forward(network_input(img_u8, ds_settings, device))
-            return argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8).cpu().numpy()
+            with span('test.input'):
+                x = network_input(img_u8, ds_settings, device)
+            with span('test.forward', device=True):
+                logits = forward(x)
+            with span('test.readback'):
+                return argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8).cpu().numpy()
 
     return pipeline
 

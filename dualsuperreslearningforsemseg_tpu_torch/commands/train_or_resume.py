@@ -73,7 +73,6 @@ import glob
 import hashlib
 import os
 import os.path
-import time
 from datetime import datetime
 
 import numpy as np
@@ -92,7 +91,7 @@ from ..ops.colorize import make_input_output_visualization
 from ..train import make_train_step, make_eval_step, make_sgd, load_optimizer_state_dict, \
     optimizer_state_dict
 from ..utils import (INFO, CAUTION, FATAL, ConditionalContextManager, select_device,
-                     device_description, makeSecondsPretty)
+                     device_description, makeSecondsPretty, span)
 from ..utils.tb_writer import SummaryWriter
 
 LOSS_NAMES = ('CE', 'MSE', 'FA', 'Total')
@@ -459,16 +458,19 @@ def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, 
                  on_first_batch=None):
     """One epoch of steps -> (the loss averages, the steps, the seconds the
     loop waited on the loader before each step, the first wait including
-    the workers' start-up).  ``on_first_batch()`` runs when the first batch
-    is in hand."""
+    the workers' start-up: each the host time of a ``data.input_wait``
+    span).  ``on_first_batch()`` runs when the first batch is in hand."""
     meters = {name: AverageMeter() for name in LOSS_NAMES}
     loader.batch_sampler.set_epoch(epoch)
     pending = None   # (device losses, batch size), read one step late
     steps = 0
     input_waits = []
-    wait_start = time.perf_counter()
-    for imgs_u8, segs_u8, batch_epoch, batch_index in loader:
-        input_waits.append(time.perf_counter() - wait_start)
+    with span('data.input_wait') as wait:
+        batches = iter(loader)
+        batch = next(batches, None)
+    while batch is not None:
+        input_waits.append(wait.seconds)
+        imgs_u8, segs_u8, batch_epoch, batch_index = batch
         if on_first_batch is not None and steps == 0:
             on_first_batch()
         imgs_w, segs_w = warp(batch_epoch, batch_index, imgs_u8.to(device, non_blocking=True),
@@ -482,7 +484,8 @@ def _train_epoch(train_step, loader, warp, device, epoch, lr, generator, stage, 
             _update_meters(pending, meters)
         pending = (losses, imgs_u8.shape[0])
         steps += 1
-        wait_start = time.perf_counter()
+        with span('data.input_wait') as wait:
+            batch = next(batches, None)
     if pending is not None:
         _update_meters(pending, meters)
     averages = tuple(meters[name]() for name in LOSS_NAMES)

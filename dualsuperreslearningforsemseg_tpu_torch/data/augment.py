@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.augment_post import photometric
+from ..utils.spans import span
 from .transforms import _nearest_indices
 
 # ITU-R 601 luma mix: torchvision Grayscale's coefficients.
@@ -154,12 +155,13 @@ def make_warp_transform(cfg: AugmentConfig, label_lut: np.ndarray, seed: int, ra
     rank_entropy = [rank] if rank else []
 
     def transform(epoch, batch_index, imgs_u8, segs_u8):
-        rng = np.random.default_rng(np.random.SeedSequence(rank_entropy + [seed, epoch, batch_index]))
-        mats = torch.from_numpy(sample_affine_matrices_np(
-            rng, imgs_u8.shape[0], tuple(imgs_u8.shape[1:3]), cfg.output_hw, cfg))
-        if imgs_u8.device.type == 'cuda':
-            mats = mats.pin_memory().to(imgs_u8.device, non_blocking=True)
-        return warp_pair_batch(imgs_u8, segs_u8, mats, cfg.output_hw, label_lut)
+        with span('data.warp', device=True):
+            rng = np.random.default_rng(np.random.SeedSequence(rank_entropy + [seed, epoch, batch_index]))
+            mats = torch.from_numpy(sample_affine_matrices_np(
+                rng, imgs_u8.shape[0], tuple(imgs_u8.shape[1:3]), cfg.output_hw, cfg))
+            if imgs_u8.device.type == 'cuda':
+                mats = mats.pin_memory().to(imgs_u8.device, non_blocking=True)
+            return warp_pair_batch(imgs_u8, segs_u8, mats, cfg.output_hw, label_lut)
 
     return transform
 
@@ -217,8 +219,9 @@ def make_device_post_fn(cfg: AugmentConfig, dtype=torch.float32, unshuffle_hi: i
     :func:`device_post`.  ``fn.unshuffled_hi_factor`` is ``unshuffle_hi``
     (the train step reads it, as the JAX package's does)."""
     def post(imgs_w_u8, segs_w_u8, generator):
-        taps, cmat, coff = photometric_params(generator, imgs_w_u8.shape[0], cfg, cfg.std)
-        return device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg, dtype, unshuffle_hi)
+        with span('data.post', device=True):
+            taps, cmat, coff = photometric_params(generator, imgs_w_u8.shape[0], cfg, cfg.std)
+            return device_post(imgs_w_u8, segs_w_u8, taps, cmat, coff, cfg, dtype, unshuffle_hi)
 
     post.unshuffled_hi_factor = int(unshuffle_hi)
     return post

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import _linear_indices_weights
+from ..utils.spans import span
 from .pipeline import ShardedSampler, _Pairs
 
 
@@ -67,18 +68,19 @@ def make_eval_transform_fn(input_hw, output_hw, mean, std, label_lut: np.ndarray
         return _lerp_resize(_lerp_resize(img, 2, out_hw[0]), 3, out_hw[1]).contiguous()
 
     def transform(images_u8, segs_u8):
-        device = images_u8.device
-        neg_mean = -torch.as_tensor(mean, dtype=torch.float32, device=device)
-        lut = torch.as_tensor(label_lut, dtype=torch.uint8, device=device)
-        img = torch.addcmul(neg_mean, images_u8.float(), inv_255.to(device)) * inv_std.to(device)
-        img = img.permute(0, 3, 1, 2)
-        img_lo = resize(img, input_hw)
-        img_hi = resize(img, output_hw)
-        seg = lut[segs_u8.long()]
-        rows = _nearest_indices(seg.shape[1], output_hw[0], device)
-        cols = _nearest_indices(seg.shape[2], output_hw[1], device)
-        seg_hi = seg.index_select(1, rows).index_select(2, cols)
-        return ((img_lo.permute(0, 2, 3, 1), img_hi.permute(0, 2, 3, 1)), (seg_hi, seg))
+        with span('data.eval_transform', device=True):
+            device = images_u8.device
+            neg_mean = -torch.as_tensor(mean, dtype=torch.float32, device=device)
+            lut = torch.as_tensor(label_lut, dtype=torch.uint8, device=device)
+            img = torch.addcmul(neg_mean, images_u8.float(), inv_255.to(device)) * inv_std.to(device)
+            img = img.permute(0, 3, 1, 2)
+            img_lo = resize(img, input_hw)
+            img_hi = resize(img, output_hw)
+            seg = lut[segs_u8.long()]
+            rows = _nearest_indices(seg.shape[1], output_hw[0], device)
+            cols = _nearest_indices(seg.shape[2], output_hw[1], device)
+            seg_hi = seg.index_select(1, rows).index_select(2, cols)
+            return ((img_lo.permute(0, 2, 3, 1), img_hi.permute(0, 2, 3, 1)), (seg_hi, seg))
 
     return transform
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fa_pairwise import fa_allpairs_abs_mean, fa_allpairs_abs_sum_rows
+from ..utils.spans import span
 
 _DENSE_PAIRS = 256_000_000
 
@@ -92,7 +93,7 @@ def fa_loss(feature_map1: torch.Tensor, feature_map2: torch.Tensor, subsample_fa
     _check_maps(feature_map1, feature_map2)
     if impl not in ('auto', 'dense', 'sorted', 'kernel'):
         raise ValueError("fa_loss: impl must be auto|dense|sorted|kernel, got {!r}".format(impl))
-    with torch.autocast(feature_map1.device.type, enabled=False):
+    with span('losses.fa'), torch.autocast(feature_map1.device.type, enabled=False):
         p1 = _pooled_slices(feature_map1, subsample_factor)
         p2 = _pooled_slices(feature_map2, subsample_factor)
         n_sim = p1.shape[2] * p1.shape[2]
@@ -114,7 +115,7 @@ def fa_loss_per_sample(feature_map1: torch.Tensor, feature_map2: torch.Tensor,
     """(B,) FA loss of each sample alone (the mean over its C slices), from
     the per-row sums of one all-pairs reduction (K4 on CUDA tensors)."""
     _check_maps(feature_map1, feature_map2)
-    with torch.autocast(feature_map1.device.type, enabled=False):
+    with span('losses.fa'), torch.autocast(feature_map1.device.type, enabled=False):
         p1 = _pooled_slices(feature_map1, subsample_factor)
         p2 = _pooled_slices(feature_map2, subsample_factor)
         n_sim = p1.shape[2] * p1.shape[2]

@@ -62,6 +62,7 @@ from ..models.dsrl import SISR_UPSCALE, freeze_batch_norms
 from ..models.norm import convert_sync_batchnorm
 from ..ops.eval_tail import eval_tail
 from ..ops.fused_tail import ce_mean, fused_convt2_ce_sum
+from ..utils.spans import span
 
 
 def _sisr_target(img_hi, unshuffled: bool):
@@ -158,16 +159,17 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
     def network_losses(img_lo, img_hi, seg, unshuffled):
         """-> (the losses, the tensor to differentiate)."""
         x = img_lo.permute(0, 3, 1, 2).contiguous()
-        with _autocast(x.device.type, amp_dtype):
+        with span('train.forward', device=True), _autocast(x.device.type, amp_dtype):
             sssr, sisr, sssr_t, sisr_t = net(x, pre_tail=True)
-        args = (sssr.contiguous(), tail.weight, tail.bias, seg.to(torch.uint8).contiguous(),
-                ignore_label)
-        ce_sum, count = fused_convt2_ce_sum(*args)
-        zero = torch.zeros((), device=sssr.device)
-        mse = w1 * mse_loss(sisr, _sisr_target(img_hi, unshuffled)) if stage > 1 else zero
-        fa = w2 * fa_loss(sssr_t, sisr_t) if stage > 2 else zero
-        losses, global_count = _global_losses(ce_sum, count, mse, fa)
-        return losses, ce_mean(ce_sum * world, global_count) + mse + fa
+        with span('train.loss', device=True):
+            args = (sssr.contiguous(), tail.weight, tail.bias, seg.to(torch.uint8).contiguous(),
+                    ignore_label)
+            ce_sum, count = fused_convt2_ce_sum(*args)
+            zero = torch.zeros((), device=sssr.device)
+            mse = w1 * mse_loss(sisr, _sisr_target(img_hi, unshuffled)) if stage > 1 else zero
+            fa = w2 * fa_loss(sssr_t, sisr_t) if stage > 2 else zero
+            losses, global_count = _global_losses(ce_sum, count, mse, fa)
+            return losses, ce_mean(ce_sum * world, global_count) + mse + fa
 
     def dry_losses(img_hi, seg):
         sssr, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, tail.out_channels)
@@ -193,20 +195,24 @@ def make_train_step(model, optimizer, stage: int, w1: float, w2: float, ignore_l
             losses, objective = network_losses(img_lo, img_hi, seg, unshuffled)
             if debug_nans:
                 _raise_if_not_finite(losses)
-            optimizer.zero_grad(set_to_none=True)
-            objective.backward()
-        optimizer.step()
+            with span('train.backward', device=True):
+                optimizer.zero_grad(set_to_none=True)
+                objective.backward()
+        with span('train.optimizer', device=True):
+            optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 
     if post_fn is None:
         def train_core(img_lo, img_hi, seg, lr):
-            return step(img_lo, img_hi, seg, lr, False)
+            with span('train.step'):
+                return step(img_lo, img_hi, seg, lr, False)
 
         return train_core
 
     def fused_step(imgs_w_u8, segs_w_u8, lr, generator):
-        (img_lo, img_hi), (seg_hi, _) = post_fn(imgs_w_u8, segs_w_u8, generator)
-        return step(img_lo, img_hi, seg_hi, lr, bool(hi_unshuffled))
+        with span('train.step'):
+            (img_lo, img_hi), (seg_hi, _) = post_fn(imgs_w_u8, segs_w_u8, generator)
+            return step(img_lo, img_hi, seg_hi, lr, bool(hi_unshuffled))
 
     return fused_step
 
@@ -238,33 +244,35 @@ def make_eval_step(num_classes: int, ignore_label: int = 255, stage: int = 1, w1
         with torch.inference_mode():
             mask = sample_mask.to(seg.device).float()
             seg = torch.where(mask.reshape(-1, 1, 1) > 0, seg.to(torch.uint8), ignore_label)
-            if dry_run:
-                gen = torch.Generator(device=seg.device).manual_seed(0)
-                logits, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, num_classes, gen)
-                target = img_hi
-                ce = cross_entropy_loss(logits, seg, ignore_label)
-                pred = argmax_lastdim(logits).to(torch.uint8)
-                areas = batch_histograms(pred, seg, num_classes, ignore_label)
-                correct, valid = batch_accuracy_counts(pred, seg, ignore_label)
-            else:
+            if not dry_run:
                 x = img_lo.permute(0, 3, 1, 2).contiguous()
-                with _autocast(x.device.type, amp_dtype):
+                with span('eval.forward', device=True), _autocast(x.device.type, amp_dtype):
                     sssr, sisr, sssr_t, sisr_t = model(x, pre_tail=True)
-                target = _sisr_target(img_hi, False) if stage > 1 else None
-                pred, ce_sum, areas, (correct, valid) = eval_tail(
-                    sssr.contiguous(), tail.weight, tail.bias, seg.contiguous(), ignore_label)
-                ce = torch.where(valid > 0, ce_sum / valid.clamp(min=1), 0.0).float()
-            mse = fa = torch.zeros((), device=ce.device)
-            n_real = mask.sum().clamp(min=1)
-            if stage > 1:
-                diff = sisr.float() - target.float()
-                mse = w1 * ((diff * diff).mean((1, 2, 3)) * mask).sum() / n_real
-            if stage > 2:
-                per_sample = (torch.stack([fa_loss(sssr_t[i:i + 1], sisr_t[i:i + 1], impl='sorted')
-                                           for i in range(seg.shape[0])]) if dry_run
-                              else fa_loss_per_sample(sssr_t, sisr_t))
-                fa = w2 * (per_sample * mask).sum() / n_real
-            losses = {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
+            with span('eval.tail', device=True):
+                if dry_run:
+                    gen = torch.Generator(device=seg.device).manual_seed(0)
+                    logits, sisr, sssr_t, sisr_t = _dry_outputs(seg, img_hi.shape, num_classes, gen)
+                    target = img_hi
+                    ce = cross_entropy_loss(logits, seg, ignore_label)
+                    pred = argmax_lastdim(logits).to(torch.uint8)
+                    areas = batch_histograms(pred, seg, num_classes, ignore_label)
+                    correct, valid = batch_accuracy_counts(pred, seg, ignore_label)
+                else:
+                    target = _sisr_target(img_hi, False) if stage > 1 else None
+                    pred, ce_sum, areas, (correct, valid) = eval_tail(
+                        sssr.contiguous(), tail.weight, tail.bias, seg.contiguous(), ignore_label)
+                    ce = torch.where(valid > 0, ce_sum / valid.clamp(min=1), 0.0).float()
+                mse = fa = torch.zeros((), device=ce.device)
+                n_real = mask.sum().clamp(min=1)
+                if stage > 1:
+                    diff = sisr.float() - target.float()
+                    mse = w1 * ((diff * diff).mean((1, 2, 3)) * mask).sum() / n_real
+                if stage > 2:
+                    per_sample = (torch.stack([fa_loss(sssr_t[i:i + 1], sisr_t[i:i + 1], impl='sorted')
+                                               for i in range(seg.shape[0])]) if dry_run
+                                  else fa_loss_per_sample(sssr_t, sisr_t))
+                    fa = w2 * (per_sample * mask).sum() / n_real
+                losses = {'CE': ce, 'MSE': mse, 'FA': fa, 'Total': ce + mse + fa}
         return losses, pred, areas, (correct, valid)
 
     return eval_step

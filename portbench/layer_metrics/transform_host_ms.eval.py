@@ -1,0 +1,8 @@
+"""Host milliseconds a batch of the eval transform (``data.eval_transform``), its
+blocking copies of constants to the card included."""
+
+from portbench.layer_metrics._spans import ms_per_step
+
+
+def read(obs):
+    return ms_per_step(obs, ('data.eval_transform',), 'host')

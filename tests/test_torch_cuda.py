@@ -43,6 +43,8 @@ device.  Run on the GPU machine with
   bit-equal to the plain version (integer sign counts times g), two
   launches bit-identical, and ``fa_loss`` on CUDA maps launches it.
 * The warp (plain PyTorch) on the card equals its CPU run.
+* Spans (utils/spans.py) inside a CUDA graph capture record no CUDA
+  events, and the capture and its replay succeed.
 * Run-to-run determinism: one stage-1 and one stage-3 train step at the
   CPU suite's small depth, after a warm-up step (cuDNN's autotuner has
   chosen), run twice from the same saved model, optimizer and generator
@@ -392,6 +394,24 @@ def test_warp_on_the_card_matches_its_cpu_run(cuda):
 @pytest.mark.parametrize('stage', [1, 3])
 def test_train_step_is_bitwise_deterministic_on_the_card(cuda, stage):
     assert_bitwise_equal(*repeated_step(select_device('cuda'), stage=stage))
+
+
+def test_spans_inside_a_graph_capture_record_no_events(cuda):
+    from dualsuperreslearningforsemseg_tpu_torch.utils.spans import Ring
+    ring = Ring(8)
+    x = torch.arange(4096, dtype=torch.float32, device=cuda)
+    with ring.span('eager', device=True):
+        y = x * 3.0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        with ring.span('captured', device=True):
+            y = x * 3.0
+    graph.replay()
+    torch.cuda.synchronize()
+    eager, captured = ring.window('eager', 1)
+    assert eager.device_ms is not None and eager.device_ms >= 0
+    assert captured.name == 'captured' and captured.device_ms is None
+    assert captured.end_ns is not None and torch.equal(y, x * 3.0)
 
 
 def test_two_resumes_from_one_checkpoint_are_bitwise_equal(cuda, tmp_path, monkeypatch):
