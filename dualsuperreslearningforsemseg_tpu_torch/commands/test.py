@@ -10,7 +10,8 @@ saves [target | prediction] pairs, the prediction masked where the target
 is ignored; the reference's dataset mode crashes with a NameError
 (test.py:96 uses an undefined ``input_image``), fixed here as in the JAX
 package.  ``--compiled-model`` takes the forward from the program that
-`compile-model` exported (commands/compile_model.py).
+`compile-model` exported (commands/compile_model.py).  On a card the image
+modes replay each frame's device work as one CUDA graph (``_build_pipeline``).
 """
 
 import os
@@ -54,21 +55,34 @@ def _build_forward(weights, ds_settings, device, compiled_model):
     return lambda x: forward(x)[0]
 
 
-def network_input(img_u8: np.ndarray, ds_settings, device) -> torch.Tensor:
-    """uint8 (H, W, 3) image -> the (1, 3, *MODEL_INPUT_SIZE) float32
-    network input on ``device``: /255, normalize, align-corners resize."""
-    mean = torch.tensor(ds_settings.MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(ds_settings.STD, dtype=torch.float32, device=device)
-    x = (torch.tensor(img_u8, device=device).float() / 255.0 - mean) / std
+def _mean_std(ds_settings, device):
+    return (torch.tensor(ds_settings.MEAN, dtype=torch.float32, device=device),
+            torch.tensor(ds_settings.STD, dtype=torch.float32, device=device))
+
+
+def _normalise_resize(x_u8: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) image on the device -> the (1, 3, *MODEL_INPUT_SIZE) float32
+    network input: /255, normalize, align-corners resize."""
+    x = (x_u8.float() / 255.0 - mean) / std
     return F.interpolate(x.permute(2, 0, 1)[None], size=settings.MODEL_INPUT_SIZE,
                          mode='bilinear', align_corners=True)
 
 
-def _build_pipeline(forward, ds_settings, device):
-    """fn(uint8 (H, W, 3) image at MODEL_OUTPUT_SIZE) -> uint8 (H, W) class
-    map: uint8 crosses to the device and back, all per-pixel math runs
-    there.  Its three parts are the spans ``test.input``, ``test.forward``
-    and ``test.readback``."""
+def _class_map(logits: torch.Tensor) -> torch.Tensor:
+    """SSSR logits (1, C, H, W) -> the uint8 (H, W) class map, on their device."""
+    return argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8)
+
+
+def network_input(img_u8: np.ndarray, ds_settings, device) -> torch.Tensor:
+    """uint8 (H, W, 3) image -> the (1, 3, *MODEL_INPUT_SIZE) float32
+    network input on ``device``: /255, normalize, align-corners resize."""
+    mean, std = _mean_std(ds_settings, device)
+    return _normalise_resize(torch.tensor(img_u8, device=device), mean, std)
+
+
+def _eager_pipeline(forward, ds_settings, device):
+    """The per-frame pipeline as eager calls, each frame's input and
+    constants made anew."""
     def pipeline(img_u8: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             with span('test.input'):
@@ -76,9 +90,80 @@ def _build_pipeline(forward, ds_settings, device):
             with span('test.forward', device=True):
                 logits = forward(x)
             with span('test.readback'):
-                return argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8).cpu().numpy()
+                return _class_map(logits).cpu().numpy()
 
     return pipeline
+
+
+class _CapturedFrame:
+    """One frame shape and dtype of :class:`_GraphPipeline`: a pinned host
+    staging buffer and the device input it is copied to, the CUDA graph of
+    ``program`` (device input -> device class map) in its own memory pool,
+    and a pinned host buffer for the class map.
+
+    ``program`` runs once eagerly on a side stream first: cuDNN's autotune
+    over the shapes, the resize's matrices (``ops/resize.py``) and the
+    libraries' handles are made there, as none may be made in a capture."""
+
+    def __init__(self, program, img: np.ndarray, device):
+        self.staging = torch.from_numpy(np.array(img)).pin_memory()
+        self.input = self.staging.to(device)
+        side, current = torch.cuda.Stream(device), torch.cuda.current_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            program(self.input)
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.class_map = program(self.input)
+        self.host_map = torch.empty(self.class_map.shape, dtype=self.class_map.dtype,
+                                    pin_memory=True)
+
+
+class _GraphPipeline:
+    """The per-frame pipeline on a card: the whole device program
+    (normalize, resize, forward, argmax, uint8) replayed as one CUDA graph,
+    captured on the first frame of each shape and dtype; the frame and the
+    class map cross through pinned buffers.  The graph launches the kernels
+    the eager pipeline launches, on the algorithms cuDNN's autotune picked,
+    so its class maps are the eager ones bit for bit.  Each call returns a
+    class map of its own."""
+
+    def __init__(self, forward, ds_settings, device):
+        self.device = device
+        self.frames = {}
+        mean, std = _mean_std(ds_settings, device)
+        self.program = lambda x_u8: _class_map(forward(_normalise_resize(x_u8, mean, std)))
+
+    def __call__(self, img_u8: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            key = (img_u8.shape, img_u8.dtype)
+            frame = self.frames.get(key)
+            if frame is None:
+                with span('test.capture'):
+                    frame = self.frames[key] = _CapturedFrame(self.program, img_u8, self.device)
+            with span('test.input'):
+                np.copyto(frame.staging.numpy(), img_u8)
+                frame.input.copy_(frame.staging, non_blocking=True)
+            with span('test.forward', device=True):
+                with span('test.replay'):
+                    frame.graph.replay()
+            with span('test.readback'):
+                frame.host_map.copy_(frame.class_map, non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+                return frame.host_map.numpy().copy()
+
+
+def _build_pipeline(forward, ds_settings, device):
+    """fn(uint8 (H, W, 3) image at MODEL_OUTPUT_SIZE) -> uint8 (H, W) class
+    map: uint8 crosses to the device and back, all per-pixel math runs
+    there.  Its three parts are the spans ``test.input``, ``test.forward``
+    and ``test.readback``.  On a card the device work is one CUDA graph
+    replay a frame (:class:`_GraphPipeline`; spans ``test.capture`` and
+    ``test.replay``); elsewhere it runs eagerly."""
+    if device.type == 'cuda':
+        return _GraphPipeline(forward, ds_settings, device)
+    return _eager_pipeline(forward, ds_settings, device)
 
 
 def _test_images(forward, ds_settings, device, image_file, images_dir, output_dir, show):

@@ -57,6 +57,13 @@ device.  Run on the GPU machine with
 * ``compile-model`` on the card at that size: the exported program's class
   map equals the eager model's except at pixels whose top-2 logits lie
   within 1e-4.
+* The ``test`` command's per-frame pipeline on the card (one CUDA graph a
+  frame shape), over the seeded stage-1 model in eager mode and over its
+  ``compile-model`` program, at the settings' sizes (512x1024 frames
+  without the CPU suite's ``conftest.py``): four frames and then two of a
+  second shape, which captures a second graph; every class map equal to
+  the eager pipeline's bit for bit, and a map returned earlier unchanged by
+  the later frames.
 * ``train --distributed ... 1 1 nccl ' ' 0`` (world 1) at that size: its
   ``final.weights`` bitwise equal to the same ``train`` without
   ``--distributed``, each in a fresh process.
@@ -507,3 +514,44 @@ def test_world_one_nccl_train_is_bitwise_the_single_process_run(cuda, tmp_path):
     assert set(finals[0]) == set(finals[1])
     differ = [k for k in finals[0] if not np.array_equal(finals[0][k], finals[1][k])]
     assert not differ, differ
+
+
+@pytest.mark.parametrize('compiled', [False, True])
+def test_the_test_pipeline_replays_a_graph_equal_to_the_eager_one(cuda, tmp_path, compiled):
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.checkpoint import save_weights
+    from dualsuperreslearningforsemseg_tpu_torch.commands import compile_model
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import (
+        _build_forward, _build_pipeline, _eager_pipeline, _GraphPipeline)
+    from dualsuperreslearningforsemseg_tpu_torch.models import DSRL, init_weights
+    from dualsuperreslearningforsemseg_tpu_torch.utils import spans
+    device = select_device('cuda')
+    model = init_weights(DSRL(num_classes=19), torch.Generator().manual_seed(2718))
+    save_weights(str(tmp_path), 'stage1.weights',
+                 {k: v.numpy() for k, v in model.state_dict().items()}, None)
+    weights = str(tmp_path / 'stage1.weights')
+    if compiled:
+        weights_file, weights = weights, str(tmp_path / 'model.pt2')
+        compile_model(weights=weights_file, output_file=weights,
+                      dataset=dict(settings.DATASETS['cityscapes']), device='cuda')
+    forward = _build_forward(weights, cityscapes, device, compiled)
+    oh, ow = settings.MODEL_OUTPUT_SIZE
+    rng = np.random.default_rng(31415)
+    frames = [rng.integers(0, 256, size=(oh, ow, 3), dtype=np.uint8) for _ in range(4)]
+    frames += [rng.integers(0, 256, size=(oh // 2 + 3, ow // 2 + 5, 3), dtype=np.uint8)
+               for _ in range(2)]
+    pipeline = _build_pipeline(forward, cityscapes, device)
+    assert isinstance(pipeline, _GraphPipeline)
+    before = spans.RING.next_seq
+    first = pipeline(frames[0])
+    kept = first.copy()
+    maps = [first] + [pipeline(f) for f in frames[1:]]
+    names = [spans.RING.record(s).name for s in range(before, spans.RING.next_seq)]
+    assert names.count('test.capture') == 2 and names.count('test.replay') == len(frames)
+    assert len(pipeline.frames) == 2
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(maps[0], maps[1])
+    eager = _eager_pipeline(forward, cityscapes, device)
+    for img, got in zip(frames, maps):
+        assert got.dtype == np.uint8 and got.shape == (oh, ow)
+        np.testing.assert_array_equal(got, eager(img))

@@ -1,7 +1,9 @@
 """The port's spans (utils/spans.py) on the CPU: nesting and parents, the
 window rule over set-up, untraced and profiled steps, a ring that has come
 round, the spans on the profiler's clock, and a stage-3 train step's spans
-in order, with a step unchanged by a full ring."""
+in order, with a step unchanged by a full ring; the ``test`` command's
+per-frame pipeline on the CPU (eager, its three spans, the class maps and
+``network_input`` of the arithmetic it had before it kept its constants)."""
 
 import numpy as np
 import pytest
@@ -152,3 +154,56 @@ def test_a_stage3_step_records_its_parts_in_order_and_a_full_ring_changes_nothin
     assert all(torch.equal(losses[k], losses2[k]) for k in losses)
     assert all(torch.equal(params[k], params2[k]) for k in params)
     assert list(losses) == ['CE', 'MSE', 'FA', 'Total']
+
+
+def _parent_input(img_u8, device):
+    """The network input as the test pipeline computed it before it kept its
+    constants: new mean and std tensors and a new frame copy each call."""
+    mean = torch.tensor(cityscapes.MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(cityscapes.STD, dtype=torch.float32, device=device)
+    x = (torch.tensor(img_u8, device=device).float() / 255.0 - mean) / std
+    return torch.nn.functional.interpolate(x.permute(2, 0, 1)[None], size=HW, mode='bilinear',
+                                           align_corners=True)
+
+
+def _frames(shape, n=3, seed=17):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(*shape, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def test_network_input_keeps_its_signature_and_output():
+    import inspect
+    from dualsuperreslearningforsemseg_tpu_torch import settings
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import network_input
+    assert list(inspect.signature(network_input).parameters) == ['img_u8', 'ds_settings', 'device']
+    assert tuple(settings.MODEL_INPUT_SIZE) == HW
+    cpu = torch.device('cpu')
+    for img in _frames(OHW) + _frames((70, 150)):
+        x = network_input(img, cityscapes, cpu)
+        assert x.dtype == torch.float32 and x.shape == (1, 3, *HW)
+        assert torch.equal(x, _parent_input(img, cpu))
+
+
+@pytest.mark.parametrize('shape', [OHW, (70, 150)])
+def test_the_cpu_test_pipeline_runs_eagerly_with_its_three_spans(shape):
+    """On the CPU ``_build_pipeline`` keeps the eager path: the class maps of
+    the parent's arithmetic, and per frame ``test.input``, ``test.forward``
+    and ``test.readback`` with no ``test.capture`` or ``test.replay``."""
+    from dualsuperreslearningforsemseg_tpu_torch.commands.test import _build_pipeline
+    from dualsuperreslearningforsemseg_tpu_torch.metrics.device import argmax_lastdim
+    cpu = torch.device('cpu')
+    model = init_weights(DSRL(num_classes=19, backbone_layers=LAYERS),
+                         torch.Generator().manual_seed(5)).eval()
+    pipeline = _build_pipeline(lambda x: model(x)[0], cityscapes, cpu)
+    frames = _frames(shape)
+    before = spans.RING.next_seq
+    maps = [pipeline(img) for img in frames]
+    recs = [spans.RING.record(s) for s in range(before, spans.RING.next_seq)]
+    assert [r.name for r in recs] == ['test.input', 'test.forward', 'test.readback'] * len(frames)
+    assert all(r.parent is None and r.device_ms is None for r in recs)
+    with torch.inference_mode():
+        for img, got in zip(frames, maps):
+            logits = model(_parent_input(img, cpu))[0]
+            ref = argmax_lastdim(logits[0].permute(1, 2, 0)).to(torch.uint8).numpy()
+            assert got.dtype == np.uint8 and got.shape == OHW
+            np.testing.assert_array_equal(got, ref)
