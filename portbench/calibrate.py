@@ -37,8 +37,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("portbench.calibrate: needs a CUDA card", file=sys.stderr)
         return 2
-    core.select_device()
     cell = core.Cell(args.workload)
+    run.port_settings(cell.cfg)
+    core.select_device()
     for seed in (int(s) for s in args.seeds.split(',')):
         drv, setup_s, obs, readings = core.measure(cell, seed, args.seconds, False, 'cuda',
                                                    time.perf_counter(), args.fault, args.control)

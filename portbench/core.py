@@ -2,8 +2,9 @@
 check the outputs, and assemble the result line.
 
 A cell ``<name>`` is ``workloads/<name>.json``: its configuration
-(``configs/<config>.json``), its traffic (``traffic/<traffic>.json``, whose
-``driver`` names the module of ``drivers/`` that runs it) and the limits
+(``configs/<config>.json``, whose ``model`` names the module of ``models/``
+that builds it), its traffic (``traffic/<traffic>.json``, whose ``driver``
+names the module of ``drivers/`` that runs it) and the limits
 of the numbers that decide ``correct``.  Which metrics the cell reports is
 read from ``BENCHMARK.json``; each per-layer metric ``<metric>`` is read
 by ``layer_metrics/<metric>.py``.
@@ -77,14 +78,13 @@ def measure(cell, seed, seconds, trace, device, t_start, fault=None, control=Fal
     same numbers of the reference in TF32 put in its place]).
 
     A traced run measures two windows, one after the other: ``seconds``
-    untraced, with CUDA events around the calls into the layers (its steps,
-    the layers' times and ``step_mfu`` come from it), then at most the
-    traffic's ``trace_seconds`` under the profiler (the device's busy share,
-    the kernels' times and the breakdown).  The profiler's reading of its
-    events takes several times its window, and a run has 360 s.
+    untraced (its steps, the program's spans and ``step_mfu`` come from
+    it), then at most the traffic's ``trace_seconds`` under the profiler
+    (the device's busy share, the kernels' times and the breakdown).  The
+    profiler's reading of its events takes several times its window, and a
+    run has 360 s.
     ``memory_peak_bytes`` is the windows' peak; the set-up's, which holds
     cuDNN's autotuner trying algorithms, is ``memory_setup_peak_bytes``."""
-    from .clock import LayerClock
     from .trace import Tracer
     cuda = device == 'cuda'
     drv = driver(cell, seed, device, fault)
@@ -93,11 +93,8 @@ def measure(cell, seed, seconds, trace, device, t_start, fault=None, control=Fal
     setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    obs = drv.window(seconds)
     if trace:
-        clock = LayerClock()
-        obs = drv.window(seconds, clock)
-        clock.detach()
-        obs['layer_ms'] = {layer: clock.ms(layer) for layer in clock.pairs}
         with Tracer() as tracer:
             with tracer.window():
                 traced = drv.window(min(seconds, cell.traffic['trace_seconds']))
@@ -106,8 +103,6 @@ def measure(cell, seed, seconds, trace, device, t_start, fault=None, control=Fal
         obs['failed'] += traced['failed']
         obs['power_limit_w'] = power_limit_w()
         del tracer
-    else:
-        obs = drv.window(seconds)
     obs['memory_peak_bytes'] = torch.cuda.max_memory_allocated() if cuda else 0
     obs['memory_setup_peak_bytes'] = setup_peak
     drv.release()

@@ -1,7 +1,7 @@
 """One driver per kind of traffic, named by a traffic file's ``driver`` key.
 
 A driver's ``setup()`` builds the program's objects and the seeded inputs
-and warms every shape of the window; ``window(seconds, clock)`` runs the
+and warms every shape of the window; ``window(seconds)`` runs the
 traffic for ``seconds`` and returns what it did (a traced run calls it
 twice, and the answers of both windows are judged); ``release()`` frees the
 program's state; ``readings(control)`` runs the reference after the

@@ -7,6 +7,8 @@ import types
 
 import torch
 
+from ..models import find
+
 PACKAGE = 'dualsuperreslearningforsemseg_tpu_torch'
 
 
@@ -18,14 +20,9 @@ def port():
 
 
 def port_model(cfg):
-    """The program's DSRL of ``cfg`` on the meta device (the weights are
-    loaded after)."""
-    P = port()
-    if tuple(P.settings.MODEL_INPUT_SIZE) != tuple(cfg['input_hw']):
-        raise RuntimeError("the program's input size is {}, the configuration's {}".format(
-            P.settings.MODEL_INPUT_SIZE, cfg['input_hw']))
-    with torch.device('meta'):
-        return P.models.DSRL(cfg['num_classes'], cfg['stage'], tuple(cfg['backbone_layers']))
+    """The program's model of ``cfg`` on the meta device (the weights are
+    loaded after), as its model module builds it."""
+    return find(cfg).program(cfg)
 
 
 class Phases:

@@ -16,9 +16,9 @@ import torch
 
 from .. import seeds
 from ..inputs import frame_pool
+from ..models import find
 from ..reference import augment
 from ..reference.losses import cross_entropy, tallies
-from ..reference.model import DSRL
 from ..weights import load_into, make_state
 from .common import NO_ANSWER, Phases, port, port_model, rel_gap
 from .train import tf32
@@ -39,9 +39,11 @@ class Driver:
         P = port()
         phases = Phases()
         b, n = tr['batch'], tr['pool_frames']
-        self.model = load_into(port_model(cfg), make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
+        model = port_model(cfg)
+        phases.mark('program')
+        self.model = load_into(model, make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
         self.model.eval()
-        phases.mark('model')
+        phases.mark('weights')
         lut = torch.tensor(cfg['label_map'], dtype=torch.uint8).numpy()
         self.transform = P.data.make_eval_transform_fn(tuple(cfg['input_hw']), tuple(cfg['output_hw']),
                                                        tuple(cfg['mean']), tuple(cfg['std']), lut)
@@ -80,11 +82,9 @@ class Driver:
         self.k += 1
         return o, losses['CE'], pred, hists, acc
 
-    def window(self, seconds, clock=None):
+    def window(self, seconds):
         """Batches until ``seconds`` have passed, then a sync; every window's
         tallies and kept batches are judged after the last."""
-        if clock:
-            clock.hook_forward(self.model)
         tallies, kept = [], []
         self._sync()
         t0 = time.perf_counter()
@@ -130,8 +130,9 @@ class Driver:
             failed += not (math.isfinite(ce) and acc[1] == labelled
                            and torch.equal(hists[2], area_target))
         self.failed = failed
+        arch = find(cfg)
         with torch.device(self.device):
-            ref = DSRL(cfg['num_classes'], cfg['stage'], cfg['backbone_layers'])
+            ref = arch.reference(cfg)
         load_into(ref, make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), self.device)).eval()
         prog = {'class_gap': 0.0, 'ce_gap': 0.0, 'count_gap': float(failed)}
         ctl = {'class_gap': 0.0, 'ce_gap': 0.0, 'count_gap': 0.0}
@@ -140,12 +141,12 @@ class Driver:
             imgs = self.pool_img[o:o + b].to(self.device)
             with torch.no_grad():
                 x = augment.resize(augment.normalise(imgs, cfg['mean'], cfg['std']), cfg['input_hw'])
-                logits = ref(x)[0]
+                logits = arch.logits(ref(x))
                 ref_ce = float(cross_entropy(logits, lab)[0])
                 _merge(prog, _judge(logits, lab, pred, ce, hists, acc, ref_ce, nc))
                 if control:
                     with tf32():
-                        c_logits = ref(x)[0]
+                        c_logits = arch.logits(ref(x))
                     c_pred = c_logits.argmax(1).to(torch.uint8)
                     c_areas, c_acc = tallies(c_pred, lab, nc)
                     _merge(ctl, _judge(logits, lab, c_pred, float(cross_entropy(c_logits, lab)[0]),

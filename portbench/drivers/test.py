@@ -4,12 +4,12 @@ the ``test`` command's per-frame pipeline.
 Each frame is a seeded (H, W, 3) uint8 image at the model's output size
 (what ``commands/test.py::_test_images`` hands its pipeline after the PIL
 resize), drawn from a pool in an order drawn from the seed; it goes through
-``commands.test._build_pipeline`` over the stage-1 model's full-logit eval
-forward (what ``_build_forward`` returns in eager mode, with the seeded
-weights already on the card) to a host uint8 class map.  A frame's
-latency runs from the host frame to the host class map.  The class maps of
-every ``check_every``-th frame (from a phase drawn from the seed) are kept
-for the comparison.
+``commands.test._build_pipeline`` over the model's class logits (its model
+module's ``logits`` of the eval forward, as ``_build_forward`` returns them
+in eager mode, with the seeded weights already on the card) to a host uint8
+class map.  A frame's latency runs from the host frame to the host class
+map.  The class maps of every ``check_every``-th frame (from a phase drawn
+from the seed) are kept for the comparison.
 """
 
 import time
@@ -19,8 +19,8 @@ import torch
 
 from .. import seeds
 from ..inputs import frame_pool
+from ..models import find
 from ..reference import augment
-from ..reference.model import DSRL
 from ..stats import percentile
 from ..weights import load_into, make_state
 from .common import NO_ANSWER, Phases, port, port_model
@@ -41,12 +41,14 @@ class Driver:
         cfg, tr, dev = self.cfg, self.traffic, self.device
         P = port()
         phases = Phases()
-        self.model = load_into(port_model(cfg), make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
+        model = port_model(cfg)
+        phases.mark('program')
+        self.model = load_into(model, make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
         self.model.eval()
-        phases.mark('model')
-        model = self.model
+        phases.mark('weights')
+        model, arch = self.model, find(cfg)
         ds = types.SimpleNamespace(MEAN=tuple(cfg['mean']), STD=tuple(cfg['std']))
-        self.pipeline = P.test._build_pipeline(lambda x: model(x)[0], ds, torch.device(dev))
+        self.pipeline = P.test._build_pipeline(lambda x: arch.logits(model(x)), ds, torch.device(dev))
         frames, _ = frame_pool(self.seed, tr['pool_frames'], cfg['output_hw'], dev, labels=False)
         self.frames = [f.numpy() for f in frames]
         phases.mark('pool')
@@ -68,11 +70,9 @@ class Driver:
         self.k += 1
         return j, pred
 
-    def window(self, seconds, clock=None):
+    def window(self, seconds):
         """Frames until ``seconds`` have passed; every window's kept frames
         are judged after the last."""
-        if clock:
-            clock.hook_forward(self.model)
         latencies = []
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds and self.k < len(self.order):
@@ -95,9 +95,9 @@ class Driver:
     def readings(self, control=False):
         """Each kept frame: the widest gap by which a pixel's class lies below
         the reference's best logit for that frame."""
-        cfg, nc = self.cfg, self.cfg['num_classes']
+        cfg, nc, arch = self.cfg, self.cfg['num_classes'], find(self.cfg)
         with torch.device(self.device):
-            ref = DSRL(nc, cfg['stage'], cfg['backbone_layers'])
+            ref = arch.reference(cfg)
         load_into(ref, make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), self.device)).eval()
         prog, ctl = {'class_gap': 0.0}, {'class_gap': 0.0}
         logits = {}
@@ -105,10 +105,10 @@ class Driver:
             for j in sorted({j for j, _ in self.kept}):
                 x = torch.from_numpy(self.frames[j])[None].to(self.device)
                 x = augment.resize(augment.normalise(x, cfg['mean'], cfg['std']), cfg['input_hw'])
-                logits[j] = ref(x)[0][0]
+                logits[j] = arch.logits(ref(x))[0]
                 if control:
                     with tf32():
-                        c_pred = ref(x)[0][0].argmax(0)
+                        c_pred = arch.logits(ref(x))[0].argmax(0)
                     ctl['class_gap'] = max(ctl['class_gap'], _gap(logits[j], c_pred, nc))
             for j, pred in self.kept:
                 pred = torch.from_numpy(pred).to(self.device)

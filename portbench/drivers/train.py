@@ -20,6 +20,7 @@ import torch
 
 from .. import seeds
 from ..inputs import frame_pool
+from ..models import find
 from ..reference import train as reference_train
 from ..weights import load_into, make_state, reference_on_meta
 from .common import Phases, norms, port, port_model, rel_gap, worst_leaf_gaps
@@ -41,7 +42,10 @@ class Driver:
         P = port()
         phases = Phases()
         b, n = tr['batch'], tr['pool_frames']
-        self.model = load_into(port_model(cfg), make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
+        model = port_model(cfg)
+        phases.mark('program')
+        self.model = load_into(model, make_state(cfg, seeds.subseed(self.seed, seeds.WEIGHTS), dev))
+        phases.mark('weights')
         self.optimizer = P.train.make_sgd(self.model, tr['lr'], tr['momentum'], tr['weight_decay'])
         aug = P.data.AugmentConfig(input_hw=tuple(cfg['input_hw']), output_hw=tuple(cfg['output_hw']),
                                    mean=tuple(cfg['mean']), std=tuple(cfg['std']), ignore_label=255,
@@ -54,21 +58,10 @@ class Driver:
         self.warp = P.data.make_warp_transform(aug, lut, self.run['warp_seed'])
         post = P.data.make_device_post_fn(aug, torch.float32,
                                           unshuffle_hi=8 if cfg['stage'] > 1 else 0)
-        self.clock = None
-
-        def timed_post(imgs, segs, generator):
-            if self.clock:
-                self.clock.start('augment')
-            out = post(imgs, segs, generator)
-            if self.clock:
-                self.clock.stop('augment')
-            return out
-
-        timed_post.unshuffled_hi_factor = post.unshuffled_hi_factor
         w1, w2 = cfg['loss_weights']
         self.step_fn = P.train.make_train_step(self.model, self.optimizer, cfg['stage'], w1, w2, 255,
-                                               post_fn=timed_post)
-        phases.mark('model')
+                                               post_fn=post)
+        phases.mark('step')
         pool_img, pool_seg = frame_pool(self.seed, n, tr['frame_hw'], dev,
                                         label_block=tr['label_block'])
         phases.mark('pool')
@@ -107,11 +100,7 @@ class Driver:
         b, o = self.traffic['batch'], self.run['offsets'][self.k]
         imgs = self.run['pool_img'][o:o + b].to(self.device, non_blocking=True)
         segs = self.run['pool_seg'][o:o + b].to(self.device, non_blocking=True)
-        if self.clock:
-            self.clock.start('augment')
         imgs_w, segs_w = self.warp(0, self.k, imgs, segs)
-        if self.clock:
-            self.clock.stop('augment')
         if self.fault == 'half_batch':
             imgs_w, segs_w = imgs_w[:b // 2], segs_w[:b // 2]
         if self.fault == 'frozen_state':
@@ -124,11 +113,8 @@ class Driver:
         self.k += 1
         return losses
 
-    def window(self, seconds, clock=None):
+    def window(self, seconds):
         """Steps until ``seconds`` have passed, then a sync: the window."""
-        self.clock = clock
-        if clock:
-            clock.hook_forward(self.model)
         steps = failed = 0
         pending = None
         self._sync()
@@ -149,21 +135,21 @@ class Driver:
 
     def release(self):
         del self.model, self.optimizer, self.step_fn, self.warp
-        self.clock = None
 
     def readings(self, control=False):
         """The reference's first steps on the same weights and inputs, and the
         numbers that compare the program's (or, with ``control``, the
         reference's in TF32) with them."""
         state = make_state(self.cfg, seeds.subseed(self.seed, seeds.WEIGHTS), self.device)
-        ref = reference_train.follow(self.cfg, self.traffic, self.run, state, self.device,
+        arch = find(self.cfg)
+        ref = reference_train.follow(self.cfg, self.traffic, self.run, state, self.device, arch,
                                      self.traffic['checked_steps'])
         names = [n for n, _ in reference_on_meta(self.cfg).named_parameters()]
         out = [self._numbers(ref, self.losses, self.grad_norms, self.update_norms, names)]
         if control:
             with tf32():
                 ctl = reference_train.follow(self.cfg, self.traffic, self.run, state, self.device,
-                                             self.traffic['checked_steps'])
+                                             arch, self.traffic['checked_steps'])
             out.append(self._numbers(ref, ctl['losses'], ctl['grad_norms'], ctl['update_norms'],
                                      names))
         return out

@@ -43,10 +43,3 @@ def k3_roofline(obs):
     cfg, b = obs['cfg'], obs['traffic']['batch']
     bound = roofline.k3_bound_s(b, cfg['output_hw'], cfg['num_classes'], _bf16(obs))
     return 100.0 * bound * obs['trace']['steps'] / secs
-
-
-def layer_ms_per_step(obs, layer):
-    total = obs['layer_ms'].get(layer)
-    if total is None or not obs['steps']:
-        return None
-    return total / obs['steps']

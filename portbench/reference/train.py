@@ -9,8 +9,6 @@ import numpy as np
 import torch
 
 from . import augment
-from .losses import cross_entropy, fa, mse
-from .model import DSRL
 
 
 def seed_dropout(device, seed):
@@ -20,8 +18,9 @@ def seed_dropout(device, seed):
         torch.manual_seed(seed)
 
 
-def follow(cfg, traffic, run, state, device, steps=3):
-    """Runs ``steps`` reference steps.  ``run`` holds the run's inputs:
+def follow(cfg, traffic, run, state, device, arch, steps=3):
+    """Runs ``steps`` reference steps of the model module ``arch``'s reference
+    model and loss terms.  ``run`` holds the run's inputs:
     ``pool_img``/``pool_seg`` (host frames and label ids), ``offsets`` (the
     first frame of each step's batch), ``warp_seed``, ``photometric_seed``
     and ``dropout_seed``.  Returns {'losses': [{term: float}] a step,
@@ -31,13 +30,12 @@ def follow(cfg, traffic, run, state, device, steps=3):
     aug, b = cfg['augment'], traffic['batch']
     out_hw, in_hw = tuple(cfg['output_hw']), tuple(cfg['input_hw'])
     with torch.device(device):
-        model = DSRL(cfg['num_classes'], cfg['stage'], cfg['backbone_layers'])
+        model = arch.reference(cfg)
     model.load_state_dict(state)
     model.train()
     params = [p for _, p in model.named_parameters()]
     p0 = [p.detach().clone() for p in params]
     lr, m, wd = traffic['lr'], traffic['momentum'], traffic['weight_decay']
-    w1, w2 = cfg['loss_weights']
     gen = torch.Generator(device=device).manual_seed(run['photometric_seed'])
     seed_dropout(device, run['dropout_seed'])
     src_hw = tuple(run['pool_img'].shape[1:3])
@@ -51,12 +49,7 @@ def follow(cfg, traffic, run, state, device, steps=3):
         img_w, seg_w = augment.warp(imgs, segs, mats, out_hw, cfg['label_map'])
         taps, mix = augment.photometric_draws(gen, b, aug)
         hi = augment.photometric(img_w, taps, mix, cfg['mean'], cfg['std'])
-        sssr, sisr, sssr_t, sisr_t = model(augment.resize(hi, in_hw))
-        terms = {'CE': cross_entropy(sssr, seg_w)[0].float()}
-        if cfg['stage'] > 1:
-            terms['MSE'] = w1 * mse(sisr, hi)
-        if cfg['stage'] > 2:
-            terms['FA'] = w2 * fa(sssr_t, sisr_t)
+        terms = arch.terms(cfg, model(augment.resize(hi, in_hw)), hi, seg_w)
         grads = torch.autograd.grad(sum(terms.values()), params)
         if k == 0:
             grad_norms = _norms(grads)
@@ -66,7 +59,7 @@ def follow(cfg, traffic, run, state, device, steps=3):
             for p, u in zip(params, bufs):
                 p.sub_(lr * u)
         losses.append({n: float(v.detach()) for n, v in terms.items()})
-        del grads, d, sssr, sisr, sssr_t, sisr_t
+        del grads, d, terms
     with torch.no_grad():
         update_norms = _norms([p - q for p, q in zip(params, p0)])
     return {'losses': losses, 'grad_norms': grad_norms, 'update_norms': update_norms}

@@ -13,6 +13,8 @@ three passes for float32 (3xTF32 keeps float32 accuracy) or at the
 bfloat16 rate, and every other operation at the float32 rate.
 """
 
+import math
+
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -67,26 +69,34 @@ def k3_bound_s(batch, out_hw, classes, bf16=False):
     return bound_s(nbytes, ops, mma, bf16)
 
 
+def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation,
+                        transposed, _output_padding, _groups, output_mask, out_shape=None, **_):
+    """A convolution's backward: each gradient asked for costs what its
+    forward costs, 2 x batch x the spatial points it slides over x the
+    weight's elements.  (torch's own formula counts a grouped convolution's
+    weight gradient as if every input channel met every output channel.)"""
+    points = (x_shape if transposed else grad_out_shape)[2:]
+    fwd = 2 * x_shape[0] * math.prod(points) * math.prod(w_shape)
+    return fwd * (int(output_mask[0]) + int(output_mask[1]))
+
+
 def model_flops(cfg, batch, train):
     """FLOPs of one step of the plain reference at the cell's shapes, counted
     by ``FlopCounterMode`` on the meta device: the forward, and for
-    training the CE (+ MSE) loss's backward too.  The FA loss's products on
-    (8 x 16) slices are left out: under a millionth of the step."""
-    from .reference.losses import cross_entropy, mse
+    training the backward of its model module's loss terms too."""
+    from .models import find
     from .weights import reference_on_meta
+    arch = find(cfg)
     model = reference_on_meta(cfg)
     model.train(train)
-    h, w = cfg['input_hw']
     with torch.device('meta'):
-        x = torch.empty(batch, 3, h, w)
-        labels = torch.zeros(batch, 2 * h, 2 * w, dtype=torch.uint8)
-        target = torch.empty(batch, 3, 2 * h, 2 * w)
-    counter = FlopCounterMode(display=False)
+        x = torch.empty(batch, 3, *cfg['input_hw'])
+        labels = torch.zeros(batch, *cfg['output_hw'], dtype=torch.uint8)
+        target = torch.empty(batch, 3, *cfg['output_hw'])
+    counter = FlopCounterMode(display=False,
+                              custom_mapping={torch.ops.aten.convolution_backward: conv_backward_flops})
     with counter, torch.set_grad_enabled(train):
-        sssr, sisr, _, _ = model(x)
+        outputs = model(x)
         if train:
-            loss = cross_entropy(sssr, labels)[0].float()
-            if sisr is not None:
-                loss = loss + mse(sisr, target)
-            loss.backward()
+            sum(arch.terms(cfg, outputs, target, labels).values()).backward()
     return counter.get_total_flops()

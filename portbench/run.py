@@ -33,6 +33,14 @@ def cache_dirs():
         os.environ[var] = os.path.join(ROOT, 'build', 'portbench', sub)
 
 
+def port_settings(cfg):
+    """Sets the program's own overrides of its sizes from the cell's
+    configuration, as its model module names them; the program reads them
+    when it is first imported, so before that."""
+    from portbench.models import find
+    os.environ.update(find(cfg).program_env(cfg))
+
+
 def forbidden_modules():
     return sorted({m.split('.')[0] for m in sys.modules} & set(FORBIDDEN))
 
@@ -51,19 +59,22 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     import torch
     from portbench import core
+    start = {'imports': time.perf_counter() - T_START}
     cell = core.Cell(args.workload)
+    port_settings(cell.cfg)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print("portbench: {} needs {} CUDA card(s); torch sees {}".format(
             args.workload, cell.chips, torch.cuda.device_count() if torch.cuda.is_available() else 0),
             file=sys.stderr)
         return 2
     core.select_device()
+    start['program_import'] = time.perf_counter() - T_START - start['imports']
     drv, setup_s, obs, readings = core.measure(cell, args.seed, args.seconds, bool(args.trace), 'cuda',
                                                T_START)
     out = core.result(cell, setup_s, obs, readings[0], bool(args.trace), 'cuda')
     info = {k: v for k, v in readings[0].items() if k not in cell.limits}
-    info.update(setup_phases_s=getattr(drv, 'phases', None), window=getattr(drv, 'diag', None),
-                reference_s=obs['reference_s'])
+    info.update(setup_phases_s=dict(start, **(getattr(drv, 'phases', None) or {})),
+                window=getattr(drv, 'diag', None), reference_s=obs['reference_s'])
     print("portbench: {} seed {} {}".format(args.workload, args.seed, json.dumps(info)), file=sys.stderr)
     for name, c in out['checks'].items():
         print("check {}: {!r} (limit {!r})".format(name, c['value'], c['limit']), file=sys.stderr)
@@ -77,4 +88,10 @@ def main(argv=None):
     return 0
 
 if __name__ == '__main__':
+    # Python's compiled modules at a fixed path inside the checkout too, so
+    # that only a checkout's first run compiles what it imports, also where
+    # the environment sets PYTHONDONTWRITEBYTECODE and the installed
+    # packages ship no bytecode.
+    sys.pycache_prefix = os.path.join(ROOT, 'build', 'portbench', 'pycache')
+    sys.dont_write_bytecode = False
     sys.exit(main())

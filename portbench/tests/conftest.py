@@ -27,10 +27,15 @@ def card():
 
 
 def tiny_cell(name):
-    """The cell ``name`` at the small size, on its own limits."""
+    """The cell ``name`` at the small size, on its own limits: the program's
+    input size above, the output scaled alike, and what its model module's
+    ``tiny`` shrinks."""
     from portbench import core
+    from portbench.models import find
     cell = core.Cell(name)
-    cell.cfg = dict(cell.cfg, input_hw=[64, 128], output_hw=[128, 256], backbone_layers=[1, 1, 2, 1])
+    cfg = cell.cfg
+    out_hw = [n * o // i for n, o, i in zip((64, 128), cfg['output_hw'], cfg['input_hw'])]
+    cell.cfg = dict(cfg, input_hw=[64, 128], output_hw=out_hw, **find(cfg).tiny(cfg))
     traffic = dict(cell.traffic)
     if traffic['driver'] == 'test':
         traffic.update(pool_frames=3, check_every=1)

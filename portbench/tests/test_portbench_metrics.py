@@ -112,12 +112,9 @@ def test_roofline_and_mfu_readers():
                           'bwd_sum_kernel': 0.0},
              'kernel_n': {'void fused_tail_fwd_kernel<float>(...)': 5, 'fwd_sum_kernel': 5,
                           'void fused_tail_bwd_kernel<float>(...)': 5, 'bwd_sum_kernel': 5}}
-    obs = {'trace': trace, 'steps': 6, 'window_s': 3.0, 'cfg': cell.cfg, 'traffic': cell.traffic,
-           'layer_ms': {'forward': 60.0}}
+    obs = {'trace': trace, 'steps': 6, 'window_s': 3.0, 'cfg': cell.cfg, 'traffic': cell.traffic}
     assert _common.k1_roofline(obs) == pytest.approx(25.0)
     assert _common.k3_roofline(obs) is None
-    assert _common.layer_ms_per_step(obs, 'forward') == 10.0
-    assert _common.layer_ms_per_step(obs, 'augment') is None
     flops = roofline.model_flops(cell.cfg, 4, True)
     assert _common.step_mfu(obs) == pytest.approx(100 * flops * 6 / 3.0 / 989e12)
 

@@ -45,36 +45,14 @@ def test_a_broken_timed_path_is_not_correct(name, fault):
     assert not out['correct'], out['checks']
 
 
-class _HostClock:
-    """``clock.LayerClock`` on the host's clock, for a traced run on the CPU."""
-
-    def __init__(self):
-        self.pairs, self.open, self.handles = {}, {}, []
-
-    def start(self, layer):
-        self.open[layer] = time.perf_counter()
-
-    def stop(self, layer):
-        self.pairs.setdefault(layer, []).append((self.open.pop(layer), time.perf_counter()))
-
-    def ms(self, layer):
-        return 1e3 * sum(b - a for a, b in self.pairs.get(layer, ()))
-
-    def hook_forward(self, module, layer='forward'):
-        self.handles += [module.register_forward_pre_hook(lambda *_: self.start(layer)),
-                         module.register_forward_hook(lambda *_: self.stop(layer))]
-
-    def detach(self):
-        for h in self.handles:
-            h.remove()
-        self.handles = []
+# The host-clock metric of each traced cell, and the spans it sums.
+HOST_SPANS = {'stage1_train_b8': ('host_step_ms.train', ('data.warp', 'train.step')),
+              'stage1_test_b1': ('forward_host_ms.test', ('test.forward',))}
 
 
 @pytest.mark.parametrize('name', ['stage1_train_b8', 'stage1_test_b1'])
 def test_a_traced_run_reads_its_layers_from_the_untraced_window(monkeypatch, name):
-    from portbench import clock
-    made = []
-    monkeypatch.setattr(clock, 'LayerClock', lambda: made.append(_HostClock()) or made[-1])
+    from portbench.layer_metrics import _spans
     cell = tiny_cell(name)
     cell.traffic = dict(cell.traffic, trace_seconds=0.5)
     asked, make = [], core.driver
@@ -82,7 +60,7 @@ def test_a_traced_run_reads_its_layers_from_the_untraced_window(monkeypatch, nam
     def driver(*a, **k):
         drv = make(*a, **k)
         window = drv.window
-        drv.window = lambda seconds, clock=None: asked.append((seconds, clock)) or window(seconds, clock)
+        drv.window = lambda seconds: asked.append(seconds) or window(seconds)
         return drv
 
     monkeypatch.setattr(core, 'driver', driver)
@@ -90,16 +68,18 @@ def test_a_traced_run_reads_its_layers_from_the_untraced_window(monkeypatch, nam
                                              time.perf_counter())
     out = core.result(cell, setup_s, obs, readings[0], True, 'cpu')
     assert out['correct'], out['checks']
-    (c,) = made
-    assert not c.handles and obs['layer_ms']['forward'] > 0
-    # every forward of the untraced window was timed, none of the traced one
-    assert len(c.pairs['forward']) == obs['steps'] > 0 and obs['trace']['steps'] > 0
+    assert asked == [1.0, 0.5] and obs['window_s'] >= 1.0
+    assert obs['steps'] > 0 and obs['trace']['steps'] > 0
     assert obs['attempted'] == obs['steps'] + obs['trace']['steps']
-    assert asked == [(1.0, c), (0.5, None)] and obs['window_s'] >= 1.0
+    # the spans read are every step of the untraced window's, none of the traced one's
+    records = _spans.window(obs)
+    opened = [r for r in records if r.name == _spans.MARKERS[cell.traffic['driver']]]
+    assert len(opened) == obs['steps'] and not any(r.profiled for r in records)
     metrics = out['metrics']
     assert set(metrics) <= {m['name'] for m in cell.per_layer}
-    forward = [k for k in metrics if k.startswith('forward_ms.')]
-    assert forward and metrics[forward[0]]['value'] == pytest.approx(obs['layer_ms']['forward'] / obs['steps'])
+    metric, spans = HOST_SPANS[name]
+    summed = sum(r.host_ms for r in records if r.name in spans) / obs['steps']
+    assert metrics[metric]['value'] == pytest.approx(summed) and summed > 0
     assert out['breakdown'] and out['device']['window_s'] == obs['trace']['window_s']
 
 
@@ -108,6 +88,8 @@ def test_the_command_prints_no_result_where_the_result_loaded_jax(monkeypatch, c
     still keeps the result from being printed."""
     import torch
     from portbench import run
+    for var in ('DSRL_TPU_MODEL_INPUT_SIZE', 'DSRL_TPU_BACKBONE_LAYERS'):
+        monkeypatch.setenv(var, os.environ.get(var, ''))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     monkeypatch.setattr(core, 'select_device', lambda: None)
@@ -140,6 +122,25 @@ def test_the_command_refuses_without_a_card():
                   '--trace', '0'], {'CUDA_VISIBLE_DEVICES': ''})
     assert p.returncode != 0 and 'CUDA card' in p.stderr
     assert not any(line.startswith('{') for line in p.stdout.splitlines())
+
+
+def test_the_command_keeps_the_bytecode_it_compiles_inside_its_checkout():
+    """Where the environment writes no bytecode, the command still keeps the
+    bytecode of what it imports at a fixed path of the checkout, so that a
+    later run does not compile it again."""
+    import importlib.util
+    saved = sys.pycache_prefix
+    sys.pycache_prefix = os.path.join(ROOT, 'build', 'portbench', 'pycache')
+    try:
+        pyc = importlib.util.cache_from_source(os.path.join(ROOT, 'portbench', 'core.py'))
+    finally:
+        sys.pycache_prefix = saved
+    if os.path.exists(pyc):
+        os.remove(pyc)
+    p = _command(['--workload', 'no_such_cell', '--seed', '1', '--seconds', '1', '--trace', '0'],
+                 {'PYTHONDONTWRITEBYTECODE': '1'})
+    assert p.returncode != 0 and 'no_such_cell' in p.stderr
+    assert os.path.isfile(pyc)
 
 
 @pytest.mark.cuda

@@ -135,13 +135,9 @@ def test_the_cells_list_the_span_metrics():
 @pytest.mark.parametrize('name,host', [
     ('stage1_test_b1', ['input_host_ms.test', 'forward_host_ms.test', 'readback_host_ms.test']),
     ('stage1_eval_b16', ['transform_host_ms.eval'])])
-def test_a_traced_run_on_the_cpu_reads_the_host_spans_of_its_untraced_window(monkeypatch, name,
-                                                                             host):
+def test_a_traced_run_on_the_cpu_reads_the_host_spans_of_its_untraced_window(name, host):
     """On the CPU the spans take no device stamps: the device readers read
     None and the host ones a positive time a step."""
-    from .test_portbench_run import _HostClock
-    from portbench import clock
-    monkeypatch.setattr(clock, 'LayerClock', _HostClock)
     cell = tiny_cell(name)
     cell.traffic = dict(cell.traffic, trace_seconds=0.5)
     _, setup_s, obs, readings = core.measure(cell, 2 ** 31 + 97, 1.0, True, 'cpu',

@@ -1,14 +1,24 @@
 """Seeded weights, made on the device in two draws and handed to the
 program and to the reference alike.
 
-Every convolution and transposed convolution takes Kaiming-normal weights
-(fan-out mode, ReLU gain: std sqrt(2 / fan_out), with torch's fan rule of
-``dim 0 * receptive field``) and, where it has one, a bias from
-U(+-1/sqrt(fan_in)); every BatchNorm takes weight 1 (``bn3_gamma`` on the
-last BatchNorm of each bottleneck), bias 0, running mean 0 and running
-variance 1.  The normal draws of all weights come from one ``randn`` and
-the uniform ones from one ``rand``, on the run's device, from a generator
-seeded from the run's seed, so one seed gives the same bits on both sides.
+A plan walks the reference model's modules in order and asks each for its
+own parameters and buffers by rules: first the model module's
+``weight_rules(cfg)``, then the defaults here.  Every convolution and
+transposed convolution takes Kaiming-normal weights (fan-out mode, ReLU
+gain: std sqrt(2 / fan_out), with torch's fan rule of ``dim 0 * receptive
+field``) and, where it has one, a bias from U(+-1/sqrt(fan_in)); every
+BatchNorm takes weight 1, bias 0, running mean 0 and running variance 1;
+every Linear a normal weight of std 0.02 and bias 0; every LayerNorm and
+GroupNorm weight 1 and bias 0.  A parameter or buffer that no rule covers
+is refused by name when the plan is made.  The normal draws of all weights
+come from one ``randn`` and the uniform ones from one ``rand``, on the
+run's device, from a generator seeded from the run's seed, so one seed
+gives the same bits on both sides.
+
+A rule is ``rule(name, module)`` -> the entries of the module's own
+parameters and buffers, ``[(local name, kind, shape, value)]``, or None
+where it does not apply: kind 'normal' (value = std), 'uniform' (value =
+bound) or 'const' (value = (fill, dtype)).
 """
 
 import math
@@ -16,46 +26,76 @@ import math
 import torch
 from torch import nn
 
-from .reference.model import DSRL
+from .models import find
+
+F32 = torch.float32
+
+
+def conv(mod):
+    w = mod.weight
+    rf = w[0, 0].numel()
+    out = [('weight', 'normal', tuple(w.shape), math.sqrt(2.0 / (w.shape[0] * rf)))]
+    if mod.bias is not None:
+        out.append(('bias', 'uniform', tuple(mod.bias.shape), 1.0 / math.sqrt(w.shape[1] * rf)))
+    return out
+
+
+def batchnorm(mod, gamma=1.0):
+    c = (mod.num_features,)
+    return [('weight', 'const', c, (gamma, F32)), ('bias', 'const', c, (0.0, F32)),
+            ('running_mean', 'const', c, (0.0, F32)), ('running_var', 'const', c, (1.0, F32)),
+            ('num_batches_tracked', 'const', (), (0, torch.int64))]
+
+
+def linear(mod):
+    out = [('weight', 'normal', tuple(mod.weight.shape), 0.02)]
+    if mod.bias is not None:
+        out.append(('bias', 'const', tuple(mod.bias.shape), (0.0, F32)))
+    return out
+
+
+def norm(mod):
+    return [(n, 'const', tuple(t.shape), (fill, F32))
+            for n, t, fill in (('weight', mod.weight, 1.0), ('bias', mod.bias, 0.0)) if t is not None]
+
+
+def _by_type(types, entries):
+    return lambda name, mod: entries(mod) if isinstance(mod, types) else None
+
+
+DEFAULT_RULES = (_by_type((nn.Conv2d, nn.ConvTranspose2d), conv), _by_type(nn.BatchNorm2d, batchnorm),
+                 _by_type(nn.Linear, linear), _by_type((nn.LayerNorm, nn.GroupNorm), norm))
 
 
 def reference_on_meta(cfg):
     with torch.device('meta'):
-        return DSRL(cfg['num_classes'], cfg['stage'], cfg['backbone_layers'])
+        return find(cfg).reference(cfg)
 
 
-def _plan(model, bn3_gamma):
-    """[(name, kind, shape, value)]: kind 'normal' (value = std), 'uniform'
-    (value = bound) or 'const' (value = fill, dtype)."""
+def _plan(model, rules):
+    """[(state-dict name, kind, shape, value)] of ``model``, module by module;
+    raises naming what no rule covers."""
     plan = []
     for mod_name, mod in model.named_modules():
         prefix = mod_name + '.' if mod_name else ''
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-            w = mod.weight
-            rf = w[0, 0].numel()
-            plan.append((prefix + 'weight', 'normal', tuple(w.shape),
-                         math.sqrt(2.0 / (w.shape[0] * rf))))
-            if mod.bias is not None:
-                plan.append((prefix + 'bias', 'uniform', tuple(mod.bias.shape),
-                             1.0 / math.sqrt(w.shape[1] * rf)))
-        elif isinstance(mod, nn.BatchNorm2d):
-            c = (mod.num_features,)
-            gamma = bn3_gamma if mod_name.endswith('.bn3') else 1.0
-            plan += [(prefix + 'weight', 'const', c, (gamma, torch.float32)),
-                     (prefix + 'bias', 'const', c, (0.0, torch.float32)),
-                     (prefix + 'running_mean', 'const', c, (0.0, torch.float32)),
-                     (prefix + 'running_var', 'const', c, (1.0, torch.float32)),
-                     (prefix + 'num_batches_tracked', 'const', (), (0, torch.int64))]
+        entries = next((e for e in (rule(mod_name, mod) for rule in rules) if e is not None), [])
+        plan += [(prefix + n, kind, shape, value) for n, kind, shape, value in entries]
+    names, state = {p[0] for p in plan}, set(model.state_dict())
+    if names != state or len(names) != len(plan):
+        raise KeyError("no seeding rule covers {}; the rules name {}, which the model lacks".format(
+            sorted(state - names), sorted(names - state)))
     return plan
 
 
 def make_state(cfg, seed: int, device) -> dict:
     """{state-dict name: tensor} on ``device`` for the model of ``cfg``."""
-    plan = _plan(reference_on_meta(cfg), cfg['bn3_gamma'])
+    plan = _plan(reference_on_meta(cfg), list(find(cfg).weight_rules(cfg)) + list(DEFAULT_RULES))
     gen = torch.Generator(device=device).manual_seed(seed)
     state = {}
     for kind, draw in (('normal', torch.randn), ('uniform', torch.rand)):
         items = [p for p in plan if p[1] == kind]
+        if not items:
+            continue
         sizes = [math.prod(p[2]) for p in items]
         flat = draw(sum(sizes), generator=gen, device=device)
         scale = torch.repeat_interleave(
